@@ -1,0 +1,443 @@
+"""Smoke run of the PyTorch/CUDA port on one GPU: kernels and one GOP.
+
+    python3 chip_smoke.py [--out DIR]
+
+Phases (any failed check raises; the script exits non-zero and prints no
+result line):
+1. setup: the card's name and power limit (nvidia-smi), a parallel nvcc
+   build of every kernel in vcm_ts_tpu_torch/csrc for sm_90a, f32 numerics
+   with TF32 off and deterministic cuDNN;
+2. kernels against their plain PyTorch versions on the card, at the shapes
+   the main path gives them, with kernel / plain / library times (CUDA
+   events) and the least time the card could take (bound);
+3. a small-input reference: the seeded models on the CPU (plain versions)
+   and on the card (kernels) agree;
+4. the main path: a seeded, damped init of IntraNoAR (N=192) and DMC
+   (64/64/96), one I-frame + 3 P-frames of seeded moving 1088x1920 frames
+   encoded into .bin files and decoded; every decoded frame must equal the
+   encoder's DPB recon bit for bit, and every kernel must have launched.
+
+The last two lines of standard output are the `kernels` JSON object, the
+nvidia-smi line, and then {"ok": true, "device": {...}}. A longer record
+(chip_smoke.json) and the GOP's .bin files go to --out (default
+smoke_out/ in the repo). Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+import torch.nn.functional as F
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s
+PEAK = {torch.float32: 67e12, torch.bfloat16: 989e12}  # flop/s, dense
+REPLACES = {
+    "warp": "vcm_ts_tpu/ops/warp.py:49 (_warp_one_gather; XLA gather)",
+    "subpel_conv1x1": "vcm_ts_tpu/ops/subpel_pallas.py:169 (_conv1x1_kernel)",
+    "pixel_shuffle_relayout": "vcm_ts_tpu/ops/subpel_pallas.py:59 "
+                              "(_relayout_kernel) + :73 "
+                              "(_relayout_full_kernel)",
+}
+SOURCES = {"warp": "vcm_ts_tpu_torch/csrc/warp.cu",
+           "subpel_conv1x1": "vcm_ts_tpu_torch/csrc/subpel_conv1x1.cu",
+           "pixel_shuffle_relayout": "vcm_ts_tpu_torch/csrc/pixel_shuffle.cu"}
+H, W = 1088, 1920
+IQ, PQ = 0.5, 0.7
+CL = torch.channels_last
+
+
+def say(msg):
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, iters=10, warmup=2):
+    """Mean device time of fn() over `iters` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes, flops, dtype):
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = flops / PEAK[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+# ------------------------------------------------------------------ phase 2
+def check_warp(g):
+    from vcm_ts_tpu_torch.ops import warp as tw
+
+    rows = []
+    frame = torch.rand((1, 3, H, W), device="cuda", generator=g).to(
+        memory_format=CL)
+    feat = torch.randn((1, 64, H, W), device="cuda", generator=g).to(
+        memory_format=CL)
+    flow = (torch.randn((1, 2, H, W), device="cuda", generator=g) * 8).to(
+        memory_format=CL)
+    ys, xs = torch.meshgrid(torch.arange(H, device="cuda"),
+                            torch.arange(W, device="cuda"), indexing="ij")
+    grid = torch.stack([(xs + flow[0, 0]) * (2.0 / (W - 1)) - 1,
+                        (ys + flow[0, 1]) * (2.0 / (H - 1)) - 1], -1)[None]
+    for label, ims in (("67ch packed (3+64) f32", [frame, feat]),
+                       ("3ch SpyNet level 0 f32", [frame])):
+        got = tw.warp_cuda(ims, flow)
+        want = tw.warp_plain(ims, flow)
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+        tol = 1e-6  # expected 0: the kernel rounds every op as plain does
+        if not err <= tol:
+            raise AssertionError(f"warp {label}: max_abs_err {err} > {tol}")
+        cat = torch.cat(ims, 1) if len(ims) > 1 else ims[0]
+        ms = cuda_ms(lambda: tw.warp_cuda(ims, flow))
+        plain = cuda_ms(lambda: tw.warp_plain(ims, flow), iters=3)
+        lib = cuda_ms(lambda: F.grid_sample(
+            cat, grid, mode="bilinear", padding_mode="border",
+            align_corners=True))
+        b, by = bound_ms(2 * nbytes(*ims) + nbytes(flow), 11 * cat.numel(),
+                         torch.float32)
+        rows.append(dict(name="warp", shape=label, dtype="float32",
+                         max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
+                         library_ms=lib, library="F.grid_sample(border, "
+                         "align_corners=True)", bound_ms=b, bound_by=by))
+    return rows
+
+
+def check_subpel_conv1x1(g):
+    from vcm_ts_tpu_torch.ops import subpel as ts
+
+    rows = []
+    h, w = H // 2, W // 2
+    for cin, c in ((64, 32), (192, 16)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((1, cin, h, w), device="cuda", generator=g).to(
+                dtype=dtype, memory_format=CL)
+            wk = (torch.randn((4, cin, c), device="cuda", generator=g)
+                  / cin ** 0.5).to(dtype)
+            bk = (torch.randn((4, c), device="cuda", generator=g) * 0.1).to(
+                dtype)
+            got = ts.subpel_conv1x1_cuda(x, wk, bk, 2)
+            want = ts.subpel_conv1x1_plain(x, wk, bk, 2)
+            err = float((got.float() - want.float()).abs().max())
+            scale = max(1.0, float(want.float().abs().max()))
+            # f32: both sum in f32 in other orders; bf16: both round an
+            # f32 sum to bf16, so they may land one or two ulps apart
+            tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6 * scale
+            label = f"{cin}->{c} at {h}x{w} {str(dtype)[6:]}"
+            if not err <= tol:
+                raise AssertionError(f"subpel_conv1x1 {label}: max_abs_err "
+                                     f"{err} > {tol}")
+            ms = cuda_ms(lambda: ts.subpel_conv1x1_cuda(x, wk, bk, 2))
+            plain = cuda_ms(lambda: ts.subpel_conv1x1_plain(x, wk, bk, 2))
+            m = h * w
+            b, by = bound_ms(nbytes(x, wk, bk, got), 2 * m * cin * 4 * c,
+                             dtype)
+            rows.append(dict(name="subpel_conv1x1", shape=label,
+                             dtype=str(dtype)[6:], max_abs_err=err, tol=tol,
+                             ms=ms, plain_ms=plain, library_ms=None,
+                             library=None, bound_ms=b, bound_by=by))
+    return rows
+
+
+def check_relayout(g):
+    from vcm_ts_tpu_torch.ops import subpel as ts
+
+    rows = []
+    h, w = H // 2, W // 2
+    for c in (64, 32):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((1, 4 * c, h, w), device="cuda", generator=g).to(
+                dtype=dtype, memory_format=CL)
+            got = ts.relayout_cuda(x, 2)
+            want = ts.relayout_plain(x, 2)
+            if not torch.equal(got, want):
+                raise AssertionError(f"relayout C={c} {dtype}: not "
+                                     "bit-identical to the plain version")
+            # the same output from torch's pixel_shuffle of the c-major input
+            xc = x.reshape(1, 4, c, h, w).transpose(1, 2).reshape(
+                1, 4 * c, h, w).contiguous(memory_format=CL)
+            if not torch.equal(F.pixel_shuffle(xc, 2), got):
+                raise AssertionError("k-major relayout != pixel_shuffle")
+            ms = cuda_ms(lambda: ts.relayout_cuda(x, 2))
+            plain = cuda_ms(lambda: ts.relayout_plain(x, 2))
+            lib = cuda_ms(lambda: F.pixel_shuffle(xc, 2))
+            b, by = bound_ms(2 * nbytes(x), 0, dtype)
+            label = f"C={c} {h}x{w}->{H}x{W} {str(dtype)[6:]}"
+            rows.append(dict(name="pixel_shuffle_relayout", shape=label,
+                             dtype=str(dtype)[6:], max_abs_err=0.0, tol=0.0,
+                             ms=ms, plain_ms=plain, library_ms=lib,
+                             library="F.pixel_shuffle (c-major input)",
+                             bound_ms=b, bound_by=by))
+    return rows
+
+
+# ------------------------------------------------------------ phases 3, 4
+def make_models(device):
+    from vcm_ts_tpu_torch.models.dmc import DMC
+    from vcm_ts_tpu_torch.models.intra import IntraNoAR
+    from vcm_ts_tpu_torch.utils.weights import init_params
+
+    # damped control: the JAX package's init with every weight x 0.5
+    intra = init_params(IntraNoAR(device=device), seed=0, kernel_scale=0.5)
+    dmc = init_params(DMC(device=device), seed=1, kernel_scale=0.5)
+    return intra, dmc
+
+
+def moving_frames(n, h, w, seed=0):
+    """Seeded smooth frames that move 4 pixels right per frame (NHWC)."""
+    g = torch.Generator().manual_seed(seed)
+    base = torch.rand((1, 3, h // 16, w // 16), generator=g)
+    base = F.interpolate(base, size=(h, w), mode="bilinear",
+                         align_corners=False)
+    return [torch.roll(base, 4 * t, dims=3).permute(0, 2, 3, 1).contiguous()
+            for t in range(n)]
+
+
+def small_reference(intra, dmc):
+    """The seeded models on the CPU (plain versions) and on the card
+    (kernels) agree on a 64x64 input."""
+    from vcm_ts_tpu_torch.models.dmc import make_dpb
+
+    frames = moving_frames(2, 64, 64, seed=3)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        i = intra.to(dev)
+        d = dmc.to(dev)
+        with torch.no_grad():
+            x0, x1 = (f.to(dev) for f in frames)
+            oi = i(x0, IQ)
+            od = d(x1, make_dpb(oi["x_hat"]), PQ, PQ, is_first_p=True)
+        outs[dev] = (oi["x_hat"].cpu(), od["dpb"]["ref_frame"].cpu(),
+                     float(od["bpp"]))
+    intra.to("cuda")
+    dmc.to("cuda")
+    err_i = float((outs["cpu"][0] - outs["cuda"][0]).abs().max())
+    err_p = float((outs["cpu"][1] - outs["cuda"][1]).abs().max())
+    # f32 conv stacks in cuDNN vs the CPU backend: another summation order
+    tol = 1e-3
+    if not (err_i <= tol and err_p <= tol):
+        raise AssertionError(f"GPU vs CPU at 64x64: I {err_i}, P {err_p} "
+                             f"> {tol}")
+    return {"intra_max_abs_err": err_i, "p_recon_max_abs_err": err_p,
+            "tol": tol, "bpp_cpu": outs["cpu"][2], "bpp_cuda": outs["cuda"][2]}
+
+
+def run_gop(intra, dmc, out_dir):
+    from vcm_ts_tpu_torch.codec import bitstream as bs
+    from vcm_ts_tpu_torch.codec.engine import IntraCodec, VideoCodec
+    from vcm_ts_tpu_torch.models.dmc import make_dpb
+    from vcm_ts_tpu_torch.ops import cuda_build
+
+    ic = IntraCodec(intra, device="cuda")
+    vc = VideoCodec(dmc, device="cuda")
+    ic.update()
+    vc.update()
+    frames = [f.cuda() for f in moving_frames(4, H, W, seed=1)]
+    gop = len(frames)
+
+    def encode():
+        i_stream = ic.compress(frames[0], IQ)
+        r0 = ic.decompress(i_stream, H, W, IQ)
+        dpb = make_dpb(r0)
+        p_streams, recons = [], [r0]
+        for t, x in enumerate(frames[1:]):
+            out = vc.compress(x, dpb, PQ, PQ, is_first_p=t == 0)
+            dpb = out["dpb"]
+            p_streams.append(out["bit_stream"])
+            recons.append(dpb["ref_frame"])
+        torch.cuda.synchronize()
+        return i_stream, p_streams, recons, dpb
+
+    def write_bin(i_stream, p_streams):
+        paths = [os.path.join(out_dir, "gop_i.bin")]
+        bs.encode_i(H, W, int(round(IQ * 100)), i_stream, paths[0])
+        for t, s in enumerate(p_streams):
+            paths.append(os.path.join(out_dir, f"gop_p{t}.bin"))
+            q = int(round(PQ * 100))
+            bs.encode_p(s, q, q, paths[-1])
+        return paths
+
+    def decode(paths):
+        h, w, qi, i_stream = bs.decode_i(paths[0])
+        r0 = ic.decompress(i_stream, h, w, qi / 100)
+        p = [bs.decode_p(pp) for pp in paths[1:]]
+        recons, _ = vc.decode_gop(make_dpb(r0), [s for _, _, s in p], h, w,
+                                  p[0][0] / 100, p[0][1] / 100)
+        torch.cuda.synchronize()
+        return [r0] + recons
+
+    # warm-up GOP through encode_gop/decode_gop (cuDNN plans, tables)
+    i_w = ic.compress(frames[0], IQ)
+    r0_w = ic.decompress(i_w, H, W, IQ)
+    streams_w, _ = vc.encode_gop(frames[1:], make_dpb(r0_w), PQ, PQ)
+    vc.decode_gop(make_dpb(r0_w), streams_w, H, W, PQ, PQ)
+    torch.cuda.synchronize()
+
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    i_stream, p_streams, enc_recons, enc_dpb = encode()
+    t1 = time.perf_counter()
+    paths = write_bin(i_stream, p_streams)
+    t2 = time.perf_counter()
+    dec_recons = decode(paths)
+    t3 = time.perf_counter()
+    launches = dict(cuda_build.LAUNCHES)
+
+    if i_stream != i_w or p_streams != streams_w:
+        raise AssertionError("encode_gop and per-frame compress wrote "
+                             "different streams")
+    psnr = []
+    for t, (e, d, x) in enumerate(zip(enc_recons, dec_recons, frames)):
+        if d.shape != (1, H, W, 3) or not torch.isfinite(d).all():
+            raise AssertionError(f"frame {t}: bad decoded frame")
+        if not torch.equal(e, d):
+            raise AssertionError(f"frame {t}: decoded frame differs from the "
+                                 "encoder's DPB recon")
+        psnr.append(float(-10 * torch.log10(((d - x) ** 2).mean())))
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: "
+                             f"{missing}")
+    sizes = [os.path.getsize(p) for p in paths]
+    profile = profile_p_frame(vc, frames[1], enc_dpb)
+    return {"frames": gop, "height": H, "width": W, "iq": IQ, "pq": PQ,
+            "encode_s": t1 - t0, "decode_s": t3 - t2,
+            "encode_fps": gop / (t1 - t0), "decode_fps": gop / (t3 - t2),
+            "bin_bytes": sizes, "psnr_db": psnr, "launches": launches,
+            "profile": profile}
+
+
+def profile_p_frame(vc, x, dpb):
+    """Where one chained P-frame's time goes (frame `x` coded against the
+    encoder's DPB `dpb`, then its stream decoded against the same DPB):
+    wall time under torch.profiler, device-busy time (the sum of kernel
+    times), the idle share, and the kernels that take the most device
+    time, for compress and decompress."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    out = {}
+    stream = []
+    for label, fn in (
+            ("compress", lambda: stream.append(
+                vc.compress(x, dpb, PQ, PQ)["bit_stream"])),
+            ("decompress", lambda: vc.decompress(dpb, stream[0], H, W, PQ,
+                                                 PQ))):
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        by_name: dict = {}
+        for e in kernels:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.device_time / 1e3, n + 1)
+        busy = sum(ms for ms, _ in by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+        out[label] = {"wall_ms": wall, "device_busy_ms": busy,
+                      "idle_share": 1.0 - busy / wall,
+                      "top_kernels": [{"name": k[:90], "ms": v[0],
+                                       "launches": v[1]} for k, v in top]}
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=os.path.join(ROOT, "smoke_out"),
+                    help="directory for chip_smoke.json and the .bin files")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "needs one CUDA device", file=sys.stderr)
+        return 1
+    from vcm_ts_tpu_torch.ops import cuda_build
+    from vcm_ts_tpu_torch.utils.device import set_codec_numerics
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    say(f"[setup] {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    t = time.perf_counter()
+    cuda_build.build_all()
+    say(f"[setup] kernels built in {time.perf_counter() - t:.1f} s")
+    for name, log in cuda_build.build_log.items():
+        for line in log.splitlines():
+            if "registers" in line:
+                say(f"[ptxas {name}] {line.strip()}")
+    set_codec_numerics()
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows = check_warp(g) + check_subpel_conv1x1(g) + check_relayout(g)
+    for r in rows:
+        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        say(f"[kernel] {r['name']} {r['shape']}: kernel_ms {r['ms']:.4f} "
+            f"plain_ms {r['plain_ms']:.4f} library_ms {lib} bound_ms "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}) max_abs_err "
+            f"{r['max_abs_err']:.3g} (tol {r['tol']:.3g})")
+
+    t = time.perf_counter()
+    intra, dmc = make_models("cuda")
+    ref = small_reference(intra, dmc)
+    say(f"[reference] 64x64 CPU vs GPU: {ref}")
+
+    out_dir = args.out
+    os.makedirs(out_dir, exist_ok=True)
+    gop = run_gop(intra, dmc, out_dir)
+    say(f"[gop] I+{gop['frames'] - 1}P {W}x{H}: encode {gop['encode_fps']:.3f}"
+        f" fps, decode {gop['decode_fps']:.3f} fps, bin bytes "
+        f"{gop['bin_bytes']}, PSNR {gop['psnr_db']}, decoded == encoder "
+        f"recon on every frame ({time.perf_counter() - t:.1f} s)")
+    say(f"[gop] launches {gop['launches']}")
+    for label, p in gop["profile"].items():
+        top = ", ".join(f"{k['name'][:40]} {k['ms']:.1f} ms x{k['launches']}"
+                        for k in p["top_kernels"][:5])
+        say(f"[profile] P-frame {label}: wall {p['wall_ms']:.1f} ms, device "
+            f"busy {p['device_busy_ms']:.1f} ms, idle share "
+            f"{p['idle_share']:.3f}; top: {top}")
+
+    # one entry per kernel: its first (main-path) shape, this run's launches
+    kernels = []
+    for name in ("warp", "subpel_conv1x1", "pixel_shuffle_relayout"):
+        r = next(r for r in rows if r["name"] == name)
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": gop["launches"][name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": r["shape"]})
+    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
+        json.dump({"device": smi, "kernel_rows": rows, "reference": ref,
+                   "gop": gop, "kernels": kernels}, f, indent=1)
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

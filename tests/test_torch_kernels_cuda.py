@@ -1,0 +1,76 @@
+"""Kernels A/B/C against their plain versions on CUDA tensors.
+
+Needs a CUDA device and nvcc (the kernels have no CPU mode), so every test
+here carries the `cuda` marker and skips without a card. Imports no JAX, so
+it runs where the port runs:
+
+    python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda
+"""
+
+from __future__ import annotations
+
+import pytest
+import torch
+
+from vcm_ts_tpu_torch.ops import cuda_build
+from vcm_ts_tpu_torch.ops import subpel as ts
+from vcm_ts_tpu_torch.ops import warp as tw
+
+CL = torch.channels_last
+
+
+@pytest.fixture(scope="module")
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    cuda_build.build_all()
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _randn(shape, g, dtype=torch.float32):
+    return torch.randn(shape, device="cuda", generator=g).to(
+        dtype=dtype, memory_format=CL if len(shape) == 4 else
+        torch.contiguous_format)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp_kernel_bit_identical_to_plain(gen, dtype):
+    im = _randn((2, 67, 40, 56), gen, dtype)
+    flow = _randn((2, 2, 40, 56), gen) * 9
+    parts = (im[:, :3].contiguous(memory_format=CL),
+             im[:, 3:].contiguous(memory_format=CL))
+    for a, b in zip(tw.warp_cuda(parts, flow), tw.warp_plain(parts, flow)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [2, 3, 32, 64, 144])
+def test_relayout_kernel_bit_identical_to_plain(gen, dtype, c):
+    x = _randn((2, 4 * c, 9, 14), gen, dtype)
+    torch.testing.assert_close(ts.relayout_cuda(x, 2),
+                               ts.relayout_plain(x, 2), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,c", [(64, 64), (64, 2), (128, 64), (64, 32),
+                                   (96, 96), (144, 144), (192, 192),
+                                   (192, 16), (288, 288)])
+def test_subpel_conv1x1_kernel_matches_plain(gen, cin, c):
+    x = _randn((1, cin, 17, 30), gen)
+    wk = _randn((4, cin, c), gen) / cin ** 0.5
+    bk = _randn((4, c), gen)
+    torch.testing.assert_close(ts.subpel_conv1x1_cuda(x, wk, bk, 2),
+                               ts.subpel_conv1x1_plain(x, wk, bk, 2),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_on_strides_they_do_not_take(gen):
+    x = _randn((1, 16, 8, 8), gen).contiguous()  # NCHW memory
+    with pytest.raises(ValueError):
+        ts.relayout_cuda(x, 2)
+    with pytest.raises(ValueError):
+        tw.warp_cuda([x], _randn((1, 2, 8, 8), gen))
