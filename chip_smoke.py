@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch/CUDA port on one GPU: kernels and one GOP.
+"""Smoke run of the PyTorch/CUDA port on one GPU: kernels, bench, GOPs.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -12,14 +12,18 @@ result line):
    events) and the least time the card could take (bound);
 3. a small-input reference: the seeded models on the CPU (plain versions)
    and on the card (kernels) agree;
-4. the main path: a seeded, damped init of IntraNoAR (N=192) and DMC
+4. the port bench (vcm_ts_tpu_torch.bench) at 1088x1920: the
+   entropy-estimated forward in bf16 with --fast-warp (kernel D launched,
+   kernel A not), then bf16, f32 and mixed with the exact warp;
+5. the main paths: a seeded, damped init of IntraNoAR (N=192) and DMC
    (64/64/96), one I-frame + 3 P-frames of seeded moving 1088x1920 frames
-   encoded into .bin files and decoded; every decoded frame must equal the
-   encoder's DPB recon bit for bit, and every kernel must have launched.
+   encoded into .bin files and decoded, in f32 with the exact warp and in
+   bf16 with fast_warp; every decoded frame must equal the encoder's DPB
+   recon bit for bit, and every kernel of the path must have launched.
 
-The last two lines of standard output are the `kernels` JSON object, the
+The last three lines of standard output are the `kernels` JSON object, the
 nvidia-smi line, and then {"ok": true, "device": {...}}. A longer record
-(chip_smoke.json) and the GOP's .bin files go to --out (default
+(chip_smoke.json) and the GOPs' .bin files go to --out (default
 smoke_out/ in the repo). Imports nothing of JAX.
 """
 
@@ -40,6 +44,8 @@ HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s
 PEAK = {torch.float32: 67e12, torch.bfloat16: 989e12}  # flop/s, dense
 REPLACES = {
     "warp": "vcm_ts_tpu/ops/warp.py:49 (_warp_one_gather; XLA gather)",
+    "warp_twopass": "vcm_ts_tpu/ops/warp_pallas.py:35 (_warp_kernel, via "
+                    "flow_warp_pallas:88)",
     "subpel_conv1x1": "vcm_ts_tpu/ops/subpel_pallas.py:169 (_conv1x1_kernel)",
     "pixel_shuffle_relayout": "vcm_ts_tpu/ops/subpel_pallas.py:59 "
                               "(_relayout_kernel) + :73 "
@@ -47,7 +53,8 @@ REPLACES = {
 }
 SOURCES = {"warp": "vcm_ts_tpu_torch/csrc/warp.cu",
            "subpel_conv1x1": "vcm_ts_tpu_torch/csrc/subpel_conv1x1.cu",
-           "pixel_shuffle_relayout": "vcm_ts_tpu_torch/csrc/pixel_shuffle.cu"}
+           "pixel_shuffle_relayout": "vcm_ts_tpu_torch/csrc/pixel_shuffle.cu",
+           "warp_twopass": "vcm_ts_tpu_torch/csrc/warp_twopass.cu"}
 H, W = 1088, 1920
 IQ, PQ = 0.5, 0.7
 CL = torch.channels_last
@@ -83,6 +90,16 @@ def nbytes(*ts):
 
 
 # ------------------------------------------------------------------ phase 2
+def _grid(flow):
+    """F.grid_sample's grid for a pixel flow (align_corners=True)."""
+    _, _, h, w = flow.shape
+    ys, xs = torch.meshgrid(torch.arange(h, device=flow.device),
+                            torch.arange(w, device=flow.device),
+                            indexing="ij")
+    return torch.stack([(xs + flow[0, 0]) * (2.0 / (w - 1)) - 1,
+                        (ys + flow[0, 1]) * (2.0 / (h - 1)) - 1], -1)[None]
+
+
 def check_warp(g):
     from vcm_ts_tpu_torch.ops import warp as tw
 
@@ -93,10 +110,7 @@ def check_warp(g):
         memory_format=CL)
     flow = (torch.randn((1, 2, H, W), device="cuda", generator=g) * 8).to(
         memory_format=CL)
-    ys, xs = torch.meshgrid(torch.arange(H, device="cuda"),
-                            torch.arange(W, device="cuda"), indexing="ij")
-    grid = torch.stack([(xs + flow[0, 0]) * (2.0 / (W - 1)) - 1,
-                        (ys + flow[0, 1]) * (2.0 / (H - 1)) - 1], -1)[None]
+    grid = _grid(flow)
     for label, ims in (("67ch packed (3+64) f32", [frame, feat]),
                        ("3ch SpyNet level 0 f32", [frame])):
         got = tw.warp_cuda(ims, flow)
@@ -118,6 +132,49 @@ def check_warp(g):
                          max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
                          library_ms=lib, library="F.grid_sample(border, "
                          "align_corners=True)", bound_ms=b, bound_by=by))
+    return rows
+
+
+def check_warp_twopass(g):
+    """Kernel D at the fast_warp path's shapes, flows past the bound D.
+    Beside it, kernel A and F.grid_sample on the same tensor and flow: they
+    compute the exact warp that fast_warp stands in for."""
+    from vcm_ts_tpu_torch.ops import warp as tw
+    from vcm_ts_tpu_torch.ops import warp_twopass as td
+
+    rows = []
+    for c, h, w, d, dtype in ((64, H, W, 24, torch.float32),
+                              (64, H, W, 24, torch.bfloat16),
+                              (3, H, W, 16, torch.float32),
+                              (64, H // 2, W // 2, 12, torch.float32),
+                              (64, H // 4, W // 4, 6, torch.float32)):
+        im = torch.rand((1, c, h, w), device="cuda", generator=g).to(
+            dtype=dtype, memory_format=CL)
+        flow = (torch.randn((1, 2, h, w), device="cuda", generator=g)
+                * (1.5 * d)).to(memory_format=CL)
+        beyond = float((flow.abs() > d).float().mean())
+        got = td.warp_twopass_cuda(im, flow, d)
+        want = td.warp_twopass_plain(im, flow, d)
+        err = float((got.float() - want.float()).abs().max())
+        tol = 0.0  # the kernel rounds every op as the plain version does
+        label = f"{c}ch {h}x{w} D={d} {str(dtype)[6:]}"
+        if not err <= tol:
+            raise AssertionError(f"warp_twopass {label}: max_abs_err {err} "
+                                 f"> {tol}")
+        ms = cuda_ms(lambda: td.warp_twopass_cuda(im, flow, d))
+        plain = cuda_ms(lambda: td.warp_twopass_plain(im, flow, d), iters=3)
+        exact = cuda_ms(lambda: tw.warp_cuda([im], flow))
+        grid = _grid(flow).to(dtype)
+        lib = cuda_ms(lambda: F.grid_sample(
+            im, grid, mode="bilinear", padding_mode="border",
+            align_corners=True))
+        b, by = bound_ms(2 * nbytes(im) + nbytes(flow), 9 * im.numel(),
+                         torch.float32)
+        rows.append(dict(name="warp_twopass", shape=label,
+                         dtype=str(dtype)[6:], max_abs_err=err, tol=tol,
+                         ms=ms, plain_ms=plain, library_ms=None, library=None,
+                         exact_warp_ms=exact, grid_sample_ms=lib,
+                         flow_beyond_d=beyond, bound_ms=b, bound_by=by))
     return rows
 
 
@@ -189,18 +246,7 @@ def check_relayout(g):
     return rows
 
 
-# ------------------------------------------------------------ phases 3, 4
-def make_models(device):
-    from vcm_ts_tpu_torch.models.dmc import DMC
-    from vcm_ts_tpu_torch.models.intra import IntraNoAR
-    from vcm_ts_tpu_torch.utils.weights import init_params
-
-    # damped control: the JAX package's init with every weight x 0.5
-    intra = init_params(IntraNoAR(device=device), seed=0, kernel_scale=0.5)
-    dmc = init_params(DMC(device=device), seed=1, kernel_scale=0.5)
-    return intra, dmc
-
-
+# --------------------------------------------------------- phases 3, 4, 5
 def moving_frames(n, h, w, seed=0):
     """Seeded smooth frames that move 4 pixels right per frame (NHWC)."""
     g = torch.Generator().manual_seed(seed)
@@ -240,7 +286,33 @@ def small_reference(intra, dmc):
             "tol": tol, "bpp_cpu": outs["cpu"][2], "bpp_cuda": outs["cuda"][2]}
 
 
-def run_gop(intra, dmc, out_dir):
+def run_bench(label, argv):
+    """One run of the port bench at 1088x1920, launches counted over it."""
+    from vcm_ts_tpu_torch import bench
+    from vcm_ts_tpu_torch.ops import cuda_build
+
+    cuda_build.reset_launches()
+    t = time.perf_counter()
+    res = bench.run(bench.parse_args(argv))
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    fast = "--fast-warp" in argv
+    if fast and not (launches["warp_twopass"] > 0 and launches["warp"] == 0):
+        raise AssertionError(f"bench {label}: fast_warp must launch kernel D "
+                             f"and not kernel A, launches {launches}")
+    if not fast and not (launches["warp"] > 0
+                         and launches["warp_twopass"] == 0):
+        raise AssertionError(f"bench {label}: the exact warp must launch "
+                             f"kernel A and not kernel D, launches {launches}")
+    if not res["value"] > 0:
+        raise AssertionError(f"bench {label}: no throughput: {res}")
+    return dict(res, label=label, argv=argv, launches=launches,
+                held_s=time.perf_counter() - t)
+
+
+def run_gop(intra, dmc, out_dir, tag, expect):
+    """I + 3 P through .bin files; `expect` names the kernels the path must
+    launch (every other kernel must not launch)."""
     from vcm_ts_tpu_torch.codec import bitstream as bs
     from vcm_ts_tpu_torch.codec.engine import IntraCodec, VideoCodec
     from vcm_ts_tpu_torch.models.dmc import make_dpb
@@ -267,10 +339,10 @@ def run_gop(intra, dmc, out_dir):
         return i_stream, p_streams, recons, dpb
 
     def write_bin(i_stream, p_streams):
-        paths = [os.path.join(out_dir, "gop_i.bin")]
+        paths = [os.path.join(out_dir, f"gop_{tag}_i.bin")]
         bs.encode_i(H, W, int(round(IQ * 100)), i_stream, paths[0])
         for t, s in enumerate(p_streams):
-            paths.append(os.path.join(out_dir, f"gop_p{t}.bin"))
+            paths.append(os.path.join(out_dir, f"gop_{tag}_p{t}.bin"))
             q = int(round(PQ * 100))
             bs.encode_p(s, q, q, paths[-1])
         return paths
@@ -312,13 +384,14 @@ def run_gop(intra, dmc, out_dir):
             raise AssertionError(f"frame {t}: decoded frame differs from the "
                                  "encoder's DPB recon")
         psnr.append(float(-10 * torch.log10(((d - x) ** 2).mean())))
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing}")
+    wrong = {k: v for k, v in launches.items() if (v > 0) != (k in expect)}
+    if wrong:
+        raise AssertionError(f"GOP {tag}: must launch exactly {expect}, "
+                             f"launches {launches}")
     sizes = [os.path.getsize(p) for p in paths]
     profile = profile_p_frame(vc, frames[1], enc_dpb)
-    return {"frames": gop, "height": H, "width": W, "iq": IQ, "pq": PQ,
+    return {"tag": tag, "frames": gop, "height": H, "width": W, "iq": IQ,
+            "pq": PQ,
             "encode_s": t1 - t0, "decode_s": t3 - t2,
             "encode_fps": gop / (t1 - t0), "decode_fps": gop / (t3 - t2),
             "bin_bytes": sizes, "psnr_db": psnr, "launches": launches,
@@ -373,6 +446,8 @@ def main():
         return 1
     from vcm_ts_tpu_torch.ops import cuda_build
     from vcm_ts_tpu_torch.utils.device import set_codec_numerics
+    from vcm_ts_tpu_torch.utils.precision import cast_params
+    from vcm_ts_tpu_torch.utils.weights import make_dmc, make_intra
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -389,48 +464,78 @@ def main():
     set_codec_numerics()
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    rows = check_warp(g) + check_subpel_conv1x1(g) + check_relayout(g)
+    rows = (check_warp(g) + check_subpel_conv1x1(g) + check_relayout(g)
+            + check_warp_twopass(g))
     for r in rows:
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        extra = ("" if r["name"] != "warp_twopass" else
+                 f" exact_warp_ms {r['exact_warp_ms']:.4f} grid_sample_ms "
+                 f"{r['grid_sample_ms']:.4f} |flow|>D share "
+                 f"{r['flow_beyond_d']:.2f}")
         say(f"[kernel] {r['name']} {r['shape']}: kernel_ms {r['ms']:.4f} "
             f"plain_ms {r['plain_ms']:.4f} library_ms {lib} bound_ms "
             f"{r['bound_ms']:.4f} ({r['bound_by']}) max_abs_err "
-            f"{r['max_abs_err']:.3g} (tol {r['tol']:.3g})")
+            f"{r['max_abs_err']:.3g} (tol {r['tol']:.3g}){extra}")
 
     t = time.perf_counter()
-    intra, dmc = make_models("cuda")
+    intra, dmc = make_intra("cuda"), make_dmc("cuda")
     ref = small_reference(intra, dmc)
-    say(f"[reference] 64x64 CPU vs GPU: {ref}")
+    say(f"[reference] 64x64 CPU vs GPU: {ref} "
+        f"({time.perf_counter() - t:.1f} s)")
+
+    benches = []
+    common = ["--size", f"{H}x{W}", "--frames", "3", "--warmup", "2",
+              "--runs", "1", "--estimate-only"]
+    for label, extra in (("bf16 fast-warp", ["--fast-warp"]),
+                         ("bf16", []), ("f32", []), ("mixed", [])):
+        b = run_bench(label, common + ["--dtype", label.split()[0], *extra])
+        benches.append(b)
+        say(f"[bench] {label}: {b['value']} fps (estimation, {W}x{H}), "
+            f"launches {b['launches']} ({b['held_s']:.1f} s)")
 
     out_dir = args.out
     os.makedirs(out_dir, exist_ok=True)
-    gop = run_gop(intra, dmc, out_dir)
-    say(f"[gop] I+{gop['frames'] - 1}P {W}x{H}: encode {gop['encode_fps']:.3f}"
-        f" fps, decode {gop['decode_fps']:.3f} fps, bin bytes "
-        f"{gop['bin_bytes']}, PSNR {gop['psnr_db']}, decoded == encoder "
-        f"recon on every frame ({time.perf_counter() - t:.1f} s)")
-    say(f"[gop] launches {gop['launches']}")
-    for label, p in gop["profile"].items():
-        top = ", ".join(f"{k['name'][:40]} {k['ms']:.1f} ms x{k['launches']}"
-                        for k in p["top_kernels"][:5])
-        say(f"[profile] P-frame {label}: wall {p['wall_ms']:.1f} ms, device "
-            f"busy {p['device_busy_ms']:.1f} ms, idle share "
-            f"{p['idle_share']:.3f}; top: {top}")
+    gops = []
+    for tag, models, expect in (
+            ("f32", (intra, dmc), {"warp", "subpel_conv1x1",
+                                   "pixel_shuffle_relayout"}),
+            ("bf16_fast_warp",
+             (cast_params(make_intra("cuda"), torch.bfloat16),
+              cast_params(make_dmc("cuda", fast_warp=True), torch.bfloat16)),
+             {"warp_twopass", "subpel_conv1x1", "pixel_shuffle_relayout"})):
+        t = time.perf_counter()
+        gop = run_gop(*models, out_dir, tag, expect)
+        gops.append(gop)
+        say(f"[gop {tag}] I+{gop['frames'] - 1}P {W}x{H}: encode "
+            f"{gop['encode_fps']:.3f} fps, decode {gop['decode_fps']:.3f} fps, "
+            f"bin bytes {gop['bin_bytes']}, PSNR {gop['psnr_db']}, decoded == "
+            f"encoder recon on every frame ({time.perf_counter() - t:.1f} s)")
+        say(f"[gop {tag}] launches {gop['launches']}")
+        for label, p in gop["profile"].items():
+            top = ", ".join(f"{k['name'][:40]} {k['ms']:.1f} ms "
+                            f"x{k['launches']}" for k in p["top_kernels"][:5])
+            say(f"[profile {tag}] P-frame {label}: wall {p['wall_ms']:.1f} ms,"
+                f" device busy {p['device_busy_ms']:.1f} ms, idle share "
+                f"{p['idle_share']:.3f}; top: {top}")
 
-    # one entry per kernel: its first (main-path) shape, this run's launches
+    # one entry per kernel: its first (main-path) shape, and its launches
+    # summed over the two GOPs (each read with the counts reset before it)
     kernels = []
-    for name in ("warp", "subpel_conv1x1", "pixel_shuffle_relayout"):
+    for name in ("warp", "subpel_conv1x1", "pixel_shuffle_relayout",
+                 "warp_twopass"):
         r = next(r for r in rows if r["name"] == name)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": gop["launches"][name],
+            "replaces": REPLACES[name],
+            "launches": sum(gp["launches"][name] for gp in gops),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"]})
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "kernel_rows": rows, "reference": ref,
-                   "gop": gop, "kernels": kernels}, f, indent=1)
+                   "bench": benches, "gops": gops, "kernels": kernels}, f,
+                  indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Kernels A/B/C against their plain versions on CUDA tensors.
+"""Kernels A/B/C/D against their plain versions on CUDA tensors.
 
 Needs a CUDA device and nvcc (the kernels have no CPU mode), so every test
 here carries the `cuda` marker and skips without a card. Imports no JAX, so
@@ -15,6 +15,7 @@ import torch
 from vcm_ts_tpu_torch.ops import cuda_build
 from vcm_ts_tpu_torch.ops import subpel as ts
 from vcm_ts_tpu_torch.ops import warp as tw
+from vcm_ts_tpu_torch.ops import warp_twopass as td
 
 CL = torch.channels_last
 
@@ -68,9 +69,29 @@ def test_subpel_conv1x1_kernel_matches_plain(gen, cin, c):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,h,w,d", [(2, 64, 37, 61, 24), (1, 3, 40, 56, 16),
+                                       (2, 20, 13, 128, 6)])
+def test_warp_twopass_kernel_bit_identical_to_plain(gen, dtype, n, c, h, w,
+                                                    d):
+    im = _randn((n, c, h, w), gen, dtype)
+    flow = _randn((n, 2, h, w), gen) * (2 * d)  # |flow| past the bound
+    before = cuda_build.LAUNCHES["warp_twopass"]
+    got = td.warp_twopass_cuda(im, flow, d)
+    assert cuda_build.LAUNCHES["warp_twopass"] == before + 1
+    torch.testing.assert_close(got, td.warp_twopass_plain(im, flow, d),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
 def test_wrappers_raise_on_strides_they_do_not_take(gen):
     x = _randn((1, 16, 8, 8), gen).contiguous()  # NCHW memory
     with pytest.raises(ValueError):
         ts.relayout_cuda(x, 2)
     with pytest.raises(ValueError):
         tw.warp_cuda([x], _randn((1, 2, 8, 8), gen))
+    with pytest.raises(ValueError):
+        td.warp_twopass_cuda(x, _randn((1, 2, 8, 8), gen), 4)
+    with pytest.raises(ValueError):  # flow of another size
+        td.warp_twopass_cuda(_randn((1, 16, 8, 8), gen),
+                             _randn((1, 2, 8, 9), gen), 4)

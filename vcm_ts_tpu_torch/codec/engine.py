@@ -38,6 +38,19 @@ def _i16(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(xf, -32768.0, 32767.0).to(torch.int16)
 
 
+def param_dtype(model: torch.nn.Module) -> torch.dtype:
+    """The dtype of the parameter whose flax path sorts first: the JAX
+    engine's `tree_leaves(params)[0].dtype` (dict keys sorted at every
+    level; the port's names are the flax paths with "kernel" named
+    "weight"). Symbol planes and the DPB take this dtype."""
+    def flax_path(name: str) -> tuple:
+        parts = name.split(".")
+        return (*parts[:-1], "kernel" if parts[-1] == "weight" else parts[-1])
+
+    _, p = min(model.named_parameters(), key=lambda kv: flax_path(kv[0]))
+    return p.dtype
+
+
 def _host(planes: dict) -> dict:
     """Device planes -> numpy, one copy each."""
     return {k: v.cpu().numpy() for k, v in planes.items()}
@@ -51,7 +64,7 @@ class _Engine:
         if self.device.type == "cuda":
             set_codec_numerics()
         self.model = model.to(self.device).eval()
-        self.param_dtype = next(model.parameters()).dtype
+        self.param_dtype = param_dtype(model)
         self.gaussian = GaussianCoder(distribution)
         self.y_table = None
         self.z_table = None

@@ -53,13 +53,14 @@ class GaussianCoder:
     # ---------------------------------------------------------------- device
     def build_indexes(self, scales: torch.Tensor) -> torch.Tensor:
         """Map predicted sigma -> scale-table row, as gaussian.py:55-60:
-        max(s, 1e-5), f32 log, the same f32 constants, clip, truncate."""
-        f32 = torch.float32
-        lmin = torch.tensor(np.float32(self.log_scale_min), dtype=f32,
-                            device=scales.device)
-        step = torch.tensor(np.float32(self.log_scale_step), dtype=f32,
-                            device=scales.device)
-        scales = torch.clamp_min(scales.to(f32), 1e-5)
+        max(s, 1e-5), log, minus and over the table's f32 constants, clip,
+        truncate, all in the scales' dtype: bf16 scales index in bf16, the
+        constants rounded to bf16, as JAX's weak-typed floats are."""
+        lmin = torch.tensor(np.float32(self.log_scale_min),
+                            device=scales.device).to(scales.dtype)
+        step = torch.tensor(np.float32(self.log_scale_step),
+                            device=scales.device).to(scales.dtype)
+        scales = torch.clamp_min(scales, 1e-5)
         indexes = (torch.log(scales) - lmin) / step
         return torch.clamp(indexes, 0, self.levels - 1).to(torch.int32)
 

@@ -27,6 +27,7 @@ from ..ops.layers import (conv, enc_dec_models, hyper_enc_dec_models,
 from ..ops.math import laplace_bits, lower_bound, probs_to_bits
 from ..ops.resize import bilinear_down2
 from ..ops.warp import flow_warp, flow_warp_packed
+from ..ops.warp_twopass import flow_warp_twopass
 from ..utils.device import resolve_device
 from . import common
 from .video_net import (ContextualDecoder, ContextualEncoder, FeatureExtractor,
@@ -61,14 +62,20 @@ def _q(q, like: torch.Tensor) -> torch.Tensor:
 
 
 class DMC(nn.Module):
+    """`fast_warp` routes every warp of SpyNet and of motion compensation
+    through the two-pass warp (kernel D, ops/warp_twopass.py) in place of
+    the exact warp: opt-in, as in the JAX package."""
+
     def __init__(self, anchor_num: int = 4, channel_mv: int = 64,
-                 channel_N: int = 64, channel_M: int = 96, device="cuda"):
+                 channel_N: int = 64, channel_M: int = 96,
+                 fast_warp: bool = False, device="cuda"):
         super().__init__()
         cm, cn, cM = channel_mv, channel_N, channel_M
         self.anchor_num, self.channel_mv = anchor_num, cm
         self.channel_N, self.channel_M = cn, cM
+        self.fast_warp = fast_warp
 
-        self.optic_flow = MESpynet()
+        self.optic_flow = MESpynet(fast_warp=fast_warp)
         self.mv_encoder, self.mv_decoder = enc_dec_models(2, 2, cm)
         (self.mv_hyper_prior_encoder,
          self.mv_hyper_prior_decoder) = hyper_enc_dec_models(cm, cn)
@@ -121,6 +128,12 @@ class DMC(nn.Module):
         b = self.y_q_basic
         return lower_bound(b, 0.5) * _q(q_scale, b)
 
+    def _warp(self, im, flow, scale: int):
+        if self.fast_warp:
+            # the displacement bound shrinks with the pyramid scale
+            return flow_warp_twopass(im, flow, max(6, 24 >> scale))
+        return flow_warp(im, flow)
+
     def _spatial(self, net):
         return lambda p: to_nhwc(net(to_nchw(p)))
 
@@ -132,16 +145,22 @@ class DMC(nn.Module):
         return self.feature_extractor(feature)
 
     def motion_compensation(self, dpb, mv, is_first_p: bool):
-        """Multi-scale warped contexts (NCHW). The reference frame and the
-        full-res feature share one flow, so they go through one packed warp."""
+        """Multi-scale warped contexts (NCHW). With the exact warp, the
+        reference frame and the full-res feature share one flow, so they go
+        through one packed warp."""
+        mv = mv.contiguous(memory_format=CL)
         mv2 = (bilinear_down2(mv) / 2).contiguous(memory_format=CL)
         mv3 = (bilinear_down2(mv2) / 2).contiguous(memory_format=CL)
-        f1, f2, f3 = self.multi_scale_feature_extractor(dpb, is_first_p)
-        warpframe, context1 = flow_warp_packed(
-            (to_nchw(dpb["ref_frame"]), f1.contiguous(memory_format=CL)),
-            mv.contiguous(memory_format=CL))
-        context2 = flow_warp(f2.contiguous(memory_format=CL), mv2)
-        context3 = flow_warp(f3.contiguous(memory_format=CL), mv3)
+        f1, f2, f3 = (f.contiguous(memory_format=CL) for f in
+                      self.multi_scale_feature_extractor(dpb, is_first_p))
+        ref = to_nchw(dpb["ref_frame"])
+        if self.fast_warp:
+            warpframe = self._warp(ref, mv, 0)
+            context1 = self._warp(f1, mv, 0)
+        else:
+            warpframe, context1 = flow_warp_packed((ref, f1), mv)
+        context2 = self._warp(f2, mv2, 1)
+        context3 = self._warp(f3, mv3, 2)
         context1, context2, context3 = self.context_fusion_net(
             context1, context2, context3)
         return context1, context2, context3, warpframe

@@ -12,17 +12,25 @@ import torch.nn as nn
 from ..ops.layers import MEBasic, ResBlock, SubpelConv, UNet, conv
 from ..ops.resize import avg_pool2, bilinear_up2
 from ..ops.warp import flow_warp
+from ..ops.warp_twopass import flow_warp_twopass
 
 CL = torch.channels_last
 
 
 class MESpynet(nn.Module):
-    """Coarse-to-fine 4-level SpyNet."""
+    """Coarse-to-fine 4-level SpyNet; `fast_warp` warps with the two-pass
+    warp (kernel D) in place of the exact warp."""
 
-    def __init__(self, levels: int = 4):
+    def __init__(self, levels: int = 4, fast_warp: bool = False):
         super().__init__()
-        self.levels = levels
+        self.levels, self.fast_warp = levels, fast_warp
         self.moduleBasic = nn.ModuleList(MEBasic() for _ in range(levels))
+
+    def _warp(self, im, flow, level: int):
+        if self.fast_warp:
+            # the displacement bound shrinks with the pyramid level
+            return flow_warp_twopass(im, flow, max(4, 16 >> level))
+        return flow_warp(im, flow)
 
     def forward(self, im1, im2):
         im1_list = [im1]
@@ -37,8 +45,8 @@ class MESpynet(nn.Module):
         for level in range(self.levels):
             flow_up = (bilinear_up2(flow) * 2.0).contiguous(memory_format=CL)
             i = self.levels - 1 - level
-            warped = flow_warp(im2_list[i].contiguous(memory_format=CL),
-                               flow_up)
+            warped = self._warp(im2_list[i].contiguous(memory_format=CL),
+                                flow_up, i)
             flow = flow_up + self.moduleBasic[level](
                 torch.cat([im1_list[i], warped, flow_up], dim=1))
         return flow

@@ -21,13 +21,14 @@ import shutil
 import subprocess
 import threading
 
-SOURCES = ("warp", "subpel_conv1x1", "pixel_shuffle")
+SOURCES = ("warp", "subpel_conv1x1", "pixel_shuffle", "warp_twopass")
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"warp": 0, "subpel_conv1x1": 0, "pixel_shuffle_relayout": 0}
+LAUNCHES = {"warp": 0, "subpel_conv1x1": 0, "pixel_shuffle_relayout": 0,
+            "warp_twopass": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point and argument types of each source (see the .cu files)
@@ -37,6 +38,7 @@ SIGNATURES = {
     "subpel_conv1x1": ("vcm_subpel_conv1x1", [_P] * 4 + [_I] * 7 + [_P]),
     "pixel_shuffle": ("vcm_pixel_shuffle_relayout", [_P] * 2 + [_I] * 6
                       + [_P]),
+    "warp_twopass": ("vcm_warp_twopass", [_P, _P, _I, _P] + [_I] * 5 + [_P]),
 }
 
 _libs: dict = {}

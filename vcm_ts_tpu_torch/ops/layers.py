@@ -33,9 +33,30 @@ def to_nhwc(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 2, 3, 1)
 
 
-def conv(cin: int, cout: int, kernel: int = 3, stride: int = 1) -> nn.Conv2d:
-    """torch Conv2d with the JAX package's explicit k//2 padding."""
-    return nn.Conv2d(cin, cout, kernel, stride, padding=kernel // 2)
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d that computes in the promoted dtype of its input and its
+    weights, as flax nn.Conv(dtype=None) does: a bf16 input to f32 weights
+    runs and comes out in f32, an f32 input to bf16 weights stays f32."""
+
+    def forward(self, x):
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        w = self.weight.to(dt)
+        b = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), w, b)
+
+
+class Linear(nn.Linear):
+    """nn.Linear with flax nn.Dense(dtype=None)'s dtype promotion."""
+
+    def forward(self, x):
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+def conv(cin: int, cout: int, kernel: int = 3, stride: int = 1) -> Conv2d:
+    """Promoting Conv2d with the JAX package's explicit k//2 padding."""
+    return Conv2d(cin, cout, kernel, stride, padding=kernel // 2)
 
 
 def pixel_shuffle(x, r: int):
@@ -165,8 +186,8 @@ class SELayer(nn.Module):
     def __init__(self, ch: int, reduction: int = 16):
         super().__init__()
         self.fc = nn.Sequential(
-            nn.Linear(ch, ch // reduction, bias=False), nn.ReLU(),
-            nn.Linear(ch // reduction, ch, bias=False), nn.Sigmoid())
+            Linear(ch, ch // reduction, bias=False), nn.ReLU(),
+            Linear(ch // reduction, ch, bias=False), nn.Sigmoid())
 
     def forward(self, x):
         y = x.mean(dim=(2, 3), dtype=torch.float32).to(x.dtype)

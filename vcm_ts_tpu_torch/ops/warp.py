@@ -112,5 +112,10 @@ def flow_warp(im, flow):
 
 def flow_warp_packed(ims, flow):
     """Backward-warp several same-size tensors by one flow, in one launch.
-    Bit-identical to separate flow_warp calls. Returns a list."""
-    return _dispatch(list(ims), flow)
+    Tensors of mixed dtypes are promoted to their common dtype first, as
+    the JAX package's concatenation does; then the result is bit-identical
+    to separate flow_warp calls. Returns a list."""
+    dt = ims[0].dtype
+    for im in ims[1:]:
+        dt = torch.promote_types(dt, im.dtype)
+    return _dispatch([im.to(dt) for im in ims], flow)

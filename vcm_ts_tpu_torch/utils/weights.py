@@ -11,7 +11,9 @@ which the port's modules load with strict=True:
 Xavier-normal with gain sqrt(2) for conv and linear weights, bias 0.01,
 N(0, 0.01) for the bit estimators, ones for the q parameters. Multiplying
 every weight by `kernel_scale` = 0.5 gives the "damped" control on which
-streams are compared byte for byte.
+streams are compared byte for byte; `make_intra` and `make_dmc` build the
+seeded damped models that the port's bench and chip_smoke.py drive (no
+DMC or IntraNoAR checkpoint ships in the repo).
 """
 
 from __future__ import annotations
@@ -74,3 +76,19 @@ def init_params(model: nn.Module, seed: int = 0,
                 if p is not None:
                     normal(p, 0.01)
     return model
+
+
+def make_intra(device="cuda") -> nn.Module:
+    """IntraNoAR (N=192), seeded damped init (seed 0, every weight x 0.5)."""
+    from ..models.intra import IntraNoAR
+
+    return init_params(IntraNoAR(device=device), seed=0, kernel_scale=0.5)
+
+
+def make_dmc(device="cuda", fast_warp: bool = False) -> nn.Module:
+    """DMC (64/64/96, anchor_num 4), seeded damped init (seed 1, every
+    weight x 0.5)."""
+    from ..models.dmc import DMC
+
+    return init_params(DMC(fast_warp=fast_warp, device=device), seed=1,
+                       kernel_scale=0.5)
