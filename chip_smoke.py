@@ -8,8 +8,12 @@ result line):
    build of every kernel in vcm_ts_tpu_torch/csrc for sm_90a, f32 numerics
    with TF32 off and deterministic cuDNN;
 2. kernels against their plain PyTorch versions on the card, at the shapes
-   the main path gives them, with kernel / plain / library times (CUDA
-   events) and the least time the card could take (bound);
+   the main path gives them (kernels A and B at every main-path shape, in
+   f32 and bf16; kernel A under an iid and a smooth flow; kernel B also
+   checked to give the same bits for a band of rows alone), with kernel /
+   plain / library device times (CUDA events over launches replayed from a
+   CUDA graph) beside the back-to-back eager times, the least time the
+   card could take (bound) and the launches per frame;
 3. a small-input reference: the seeded models on the CPU (plain versions)
    and on the card (kernels) agree;
 4. the port bench (vcm_ts_tpu_torch.bench) at 1088x1920: the
@@ -55,6 +59,10 @@ SOURCES = {"warp": "vcm_ts_tpu_torch/csrc/warp.cu",
            "subpel_conv1x1": "vcm_ts_tpu_torch/csrc/subpel_conv1x1.cu",
            "pixel_shuffle_relayout": "vcm_ts_tpu_torch/csrc/pixel_shuffle.cu",
            "warp_twopass": "vcm_ts_tpu_torch/csrc/warp_twopass.cu"}
+# the __global__ functions of csrc/*.cu, as the profiler names them
+PORT_KERNEL_FUNCS = ("warp_kernel", "warp_narrow_kernel", "warp_twopass_kernel",
+                     "conv_mma_bf16", "conv_fma_f32", "conv_narrow",
+                     "relayout_kernel")
 H, W = 1088, 1920
 IQ, PQ = 0.5, 0.7
 CL = torch.channels_last
@@ -79,6 +87,41 @@ def cuda_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters=10):
+    """Mean device time of fn() over `iters` calls replayed from one CUDA
+    graph: no host work between the launches, so unlike cuda_ms it does
+    not include the Python dispatch of a call when that outlasts the
+    device's work (small tensors)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def times(kernel, plain, library):
+    """Device (graph) and back-to-back (eager) times of a kernel, its plain
+    version and its library yardstick (None: no such call)."""
+    t = dict(ms=graph_ms(kernel), eager_ms=cuda_ms(kernel),
+             plain_ms=graph_ms(plain, iters=3), library_ms=None,
+             library_eager_ms=None)
+    if library is not None:
+        t.update(library_ms=graph_ms(library),
+                 library_eager_ms=cuda_ms(library))
+    return t
+
+
 def bound_ms(nbytes, flops, dtype):
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = flops / PEAK[dtype] * 1e3
@@ -100,38 +143,71 @@ def _grid(flow):
                         (ys + flow[0, 1]) * (2.0 / (h - 1)) - 1], -1)[None]
 
 
+# Kernel A's main-path calls at 1088x1920: (label, channels of each tensor,
+# H, W, launches per P-frame encoded / P-frame decoded / I-frame decoded).
+WARP_SHAPES = (
+    ("67ch packed (3+64)", (3, 64), H, W, (1, 1, 0)),
+    ("3ch SpyNet level 0", (3,), H, W, (1, 0, 0)),
+    ("3ch SpyNet level 1", (3,), H // 2, W // 2, (1, 0, 0)),
+    ("3ch SpyNet level 2", (3,), H // 4, W // 4, (1, 0, 0)),
+    ("3ch SpyNet level 3", (3,), H // 8, W // 8, (1, 0, 0)),
+    ("64ch context2", (64,), H // 2, W // 2, (1, 1, 0)),
+    ("64ch context3", (64,), H // 4, W // 4, (1, 1, 0)),
+)
+
+
+def make_flow(kind, h, w, g):
+    """iid: N(0, 8^2) per pixel, a worst case for tap locality; smooth: the
+    same field at 1/16 resolution, upsampled bilinearly, as motion is."""
+    if kind == "iid":
+        flow = torch.randn((1, 2, h, w), device="cuda", generator=g) * 8
+    else:
+        coarse = torch.randn((1, 2, h // 16, w // 16), device="cuda",
+                             generator=g) * 8
+        flow = F.interpolate(coarse, size=(h, w), mode="bilinear",
+                             align_corners=False)
+    return flow.contiguous(memory_format=CL)
+
+
 def check_warp(g):
+    """Kernel A at every main-path shape, f32 and bf16 (data and flow in
+    the working dtype, as in the model), under an iid and a smooth flow."""
     from vcm_ts_tpu_torch.ops import warp as tw
 
     rows = []
-    frame = torch.rand((1, 3, H, W), device="cuda", generator=g).to(
-        memory_format=CL)
-    feat = torch.randn((1, 64, H, W), device="cuda", generator=g).to(
-        memory_format=CL)
-    flow = (torch.randn((1, 2, H, W), device="cuda", generator=g) * 8).to(
-        memory_format=CL)
-    grid = _grid(flow)
-    for label, ims in (("67ch packed (3+64) f32", [frame, feat]),
-                       ("3ch SpyNet level 0 f32", [frame])):
-        got = tw.warp_cuda(ims, flow)
-        want = tw.warp_plain(ims, flow)
-        err = max(float((a.float() - b.float()).abs().max())
-                  for a, b in zip(got, want))
-        tol = 1e-6  # expected 0: the kernel rounds every op as plain does
-        if not err <= tol:
-            raise AssertionError(f"warp {label}: max_abs_err {err} > {tol}")
-        cat = torch.cat(ims, 1) if len(ims) > 1 else ims[0]
-        ms = cuda_ms(lambda: tw.warp_cuda(ims, flow))
-        plain = cuda_ms(lambda: tw.warp_plain(ims, flow), iters=3)
-        lib = cuda_ms(lambda: F.grid_sample(
-            cat, grid, mode="bilinear", padding_mode="border",
-            align_corners=True))
-        b, by = bound_ms(2 * nbytes(*ims) + nbytes(flow), 11 * cat.numel(),
-                         torch.float32)
-        rows.append(dict(name="warp", shape=label, dtype="float32",
-                         max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
-                         library_ms=lib, library="F.grid_sample(border, "
-                         "align_corners=True)", bound_ms=b, bound_by=by))
+    for name, chans, h, w, per_frame in WARP_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for kind in ("iid", "smooth"):
+                ims = [(torch.rand if c == 3 else torch.randn)(
+                    (1, c, h, w), device="cuda", generator=g).to(
+                        dtype=dtype, memory_format=CL) for c in chans]
+                flow = make_flow(kind, h, w, g).to(dtype)
+                got = tw.warp_cuda(ims, flow)
+                want = tw.warp_plain(ims, flow)
+                err = max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(got, want))
+                tol = 0.0  # the kernel rounds every op as plain does
+                dt = str(dtype)[6:]
+                size = "" if (h, w) == (H, W) else f" {h}x{w}"
+                label = (f"{name}{size} {'f32' if dt == 'float32' else dt}"
+                         + ("" if kind == "iid" else ", smooth flow"))
+                if not err <= tol:
+                    raise AssertionError(f"warp {label}: max_abs_err {err} "
+                                         f"> {tol}")
+                cat = torch.cat(ims, 1) if len(ims) > 1 else ims[0]
+                grid = _grid(flow.float()).to(dtype)
+                t = times(lambda: tw.warp_cuda(ims, flow),
+                          lambda: tw.warp_plain(ims, flow),
+                          lambda: F.grid_sample(
+                              cat, grid, mode="bilinear",
+                              padding_mode="border", align_corners=True))
+                b, by = bound_ms(2 * nbytes(*ims) + nbytes(flow),
+                                 11 * cat.numel(), torch.float32)
+                rows.append(dict(
+                    name="warp", shape=label, dtype=dt, flow=kind,
+                    max_abs_err=err, tol=tol, **t,
+                    library="F.grid_sample(border, align_corners=True)",
+                    bound_ms=b, bound_by=by, per_frame=per_frame))
     return rows
 
 
@@ -161,29 +237,55 @@ def check_warp_twopass(g):
         if not err <= tol:
             raise AssertionError(f"warp_twopass {label}: max_abs_err {err} "
                                  f"> {tol}")
-        ms = cuda_ms(lambda: td.warp_twopass_cuda(im, flow, d))
-        plain = cuda_ms(lambda: td.warp_twopass_plain(im, flow, d), iters=3)
-        exact = cuda_ms(lambda: tw.warp_cuda([im], flow))
+        t = times(lambda: td.warp_twopass_cuda(im, flow, d),
+                  lambda: td.warp_twopass_plain(im, flow, d), None)
+        exact = graph_ms(lambda: tw.warp_cuda([im], flow))
         grid = _grid(flow).to(dtype)
-        lib = cuda_ms(lambda: F.grid_sample(
+        lib = graph_ms(lambda: F.grid_sample(
             im, grid, mode="bilinear", padding_mode="border",
             align_corners=True))
         b, by = bound_ms(2 * nbytes(im) + nbytes(flow), 9 * im.numel(),
                          torch.float32)
         rows.append(dict(name="warp_twopass", shape=label,
                          dtype=str(dtype)[6:], max_abs_err=err, tol=tol,
-                         ms=ms, plain_ms=plain, library_ms=None, library=None,
+                         **t, library=None,
                          exact_warp_ms=exact, grid_sample_ms=lib,
                          flow_beyond_d=beyond, bound_ms=b, bound_by=by))
     return rows
 
 
+# Kernel B's main-path calls at 1088x1920: (Cin, C, input H, W, launches
+# per P-frame encoded / P-frame decoded / I-frame decoded); models/dmc.py,
+# models/intra.py, models/video_net.py, ops/layers.py.
+CONV1X1_SHAPES = (
+    (64, 32, H // 2, W // 2, (2, 2, 1)),     # UNet up2
+    (192, 16, H // 2, W // 2, (0, 0, 1)),    # intra decoder, last layer
+    (128, 64, H // 4, W // 4, (2, 2, 1)),    # UNet up3
+    (64, 64, H // 16, W // 16, (2, 2, 0)),   # mv decoder upsample blocks
+    (64, 64, H // 8, W // 8, (2, 2, 0)),
+    (64, 64, H // 4, W // 4, (2, 2, 0)),
+    (64, 2, H // 2, W // 2, (1, 1, 0)),      # mv decoder, last layer
+    (64, 64, H // 64, W // 64, (1, 1, 0)),   # mv hyper decoder
+    (96, 96, H // 32, W // 32, (1, 1, 0)),
+    (96, 96, H // 64, W // 64, (1, 1, 0)),   # contextual hyper decoder
+    (144, 144, H // 32, W // 32, (1, 1, 0)),
+    (192, 192, H // 16, W // 16, (0, 0, 2)),  # intra decoder upsample blocks
+    (192, 192, H // 8, W // 8, (0, 0, 2)),
+    (192, 192, H // 4, W // 4, (0, 0, 2)),
+    (192, 192, H // 64, W // 64, (0, 0, 1)),  # intra hyper decoder
+    (288, 288, H // 32, W // 32, (0, 0, 1)),
+)
+
+
 def check_subpel_conv1x1(g):
+    """Kernel B at every main-path shape in f32 and bf16, against its plain
+    version; beside it one cuDNN 1x1 F.conv2d (channels_last, bias, no
+    shuffle) on the same x, timed only. A band of rows of x must give the
+    same bits as those rows inside the whole tensor."""
     from vcm_ts_tpu_torch.ops import subpel as ts
 
     rows = []
-    h, w = H // 2, W // 2
-    for cin, c in ((64, 32), (192, 16)):
+    for cin, c, h, w, per_frame in CONV1X1_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn((1, cin, h, w), device="cuda", generator=g).to(
                 dtype=dtype, memory_format=CL)
@@ -202,15 +304,26 @@ def check_subpel_conv1x1(g):
             if not err <= tol:
                 raise AssertionError(f"subpel_conv1x1 {label}: max_abs_err "
                                      f"{err} > {tol}")
-            ms = cuda_ms(lambda: ts.subpel_conv1x1_cuda(x, wk, bk, 2))
-            plain = cuda_ms(lambda: ts.subpel_conv1x1_plain(x, wk, bk, 2))
-            m = h * w
-            b, by = bound_ms(nbytes(x, wk, bk, got), 2 * m * cin * 4 * c,
+            h0, h1 = h // 4, h // 4 + h // 2 + 1
+            band = x[:, :, h0:h1].contiguous(memory_format=CL)
+            if not torch.equal(ts.subpel_conv1x1_cuda(band, wk, bk, 2),
+                               got[:, :, 2 * h0:2 * h1]):
+                raise AssertionError(f"subpel_conv1x1 {label}: rows {h0}:"
+                                     f"{h1} alone give other bits than in "
+                                     "the whole tensor")
+            w4 = wk.permute(0, 2, 1).reshape(4 * c, cin, 1, 1).contiguous(
+                memory_format=CL)
+            b4 = bk.reshape(4 * c)
+            t = times(lambda: ts.subpel_conv1x1_cuda(x, wk, bk, 2),
+                      lambda: ts.subpel_conv1x1_plain(x, wk, bk, 2),
+                      lambda: F.conv2d(x, w4, b4))
+            b, by = bound_ms(nbytes(x, wk, bk, got), 2 * h * w * cin * 4 * c,
                              dtype)
             rows.append(dict(name="subpel_conv1x1", shape=label,
                              dtype=str(dtype)[6:], max_abs_err=err, tol=tol,
-                             ms=ms, plain_ms=plain, library_ms=None,
-                             library=None, bound_ms=b, bound_by=by))
+                             m_independent=True, **t, library="F.conv2d 1x1 "
+                             "(channels_last, bias, no shuffle; cuDNN)",
+                             bound_ms=b, bound_by=by, per_frame=per_frame))
     return rows
 
 
@@ -233,15 +346,14 @@ def check_relayout(g):
                 1, 4 * c, h, w).contiguous(memory_format=CL)
             if not torch.equal(F.pixel_shuffle(xc, 2), got):
                 raise AssertionError("k-major relayout != pixel_shuffle")
-            ms = cuda_ms(lambda: ts.relayout_cuda(x, 2))
-            plain = cuda_ms(lambda: ts.relayout_plain(x, 2))
-            lib = cuda_ms(lambda: F.pixel_shuffle(xc, 2))
+            t = times(lambda: ts.relayout_cuda(x, 2),
+                      lambda: ts.relayout_plain(x, 2),
+                      lambda: F.pixel_shuffle(xc, 2))
             b, by = bound_ms(2 * nbytes(x), 0, dtype)
             label = f"C={c} {h}x{w}->{H}x{W} {str(dtype)[6:]}"
             rows.append(dict(name="pixel_shuffle_relayout", shape=label,
                              dtype=str(dtype)[6:], max_abs_err=0.0, tol=0.0,
-                             ms=ms, plain_ms=plain, library_ms=lib,
-                             library="F.pixel_shuffle (c-major input)",
+                             **t, library="F.pixel_shuffle (c-major input)",
                              bound_ms=b, bound_by=by))
     return rows
 
@@ -428,10 +540,19 @@ def profile_p_frame(vc, x, dpb):
             by_name[e.name] = (ms + e.device_time / 1e3, n + 1)
         busy = sum(ms for ms, _ in by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+        ours = {}
+        for k, (ms, n) in by_name.items():
+            fn = next((f for f in PORT_KERNEL_FUNCS if f + "<" in k
+                       or f + "(" in k), None)
+            if fn:
+                t, c = ours.get(fn, (0.0, 0))
+                ours[fn] = (t + ms, c + n)
         out[label] = {"wall_ms": wall, "device_busy_ms": busy,
                       "idle_share": 1.0 - busy / wall,
                       "top_kernels": [{"name": k[:90], "ms": v[0],
-                                       "launches": v[1]} for k, v in top]}
+                                       "launches": v[1]} for k, v in top],
+                      "port_kernels": {k: {"ms": v[0], "launches": v[1]}
+                                       for k, v in sorted(ours.items())}}
     return out
 
 
@@ -472,8 +593,14 @@ def main():
                  f" exact_warp_ms {r['exact_warp_ms']:.4f} grid_sample_ms "
                  f"{r['grid_sample_ms']:.4f} |flow|>D share "
                  f"{r['flow_beyond_d']:.2f}")
+        if "per_frame" in r:
+            extra += " launches per frame (P enc / P dec / I dec) " + \
+                " / ".join(map(str, r["per_frame"]))
+        lib_e = ("" if r["library_eager_ms"] is None
+                 else f" (eager {r['library_eager_ms']:.4f})")
         say(f"[kernel] {r['name']} {r['shape']}: kernel_ms {r['ms']:.4f} "
-            f"plain_ms {r['plain_ms']:.4f} library_ms {lib} bound_ms "
+            f"(eager {r['eager_ms']:.4f}) plain_ms {r['plain_ms']:.4f} "
+            f"library_ms {lib}{lib_e} bound_ms "
             f"{r['bound_ms']:.4f} ({r['bound_by']}) max_abs_err "
             f"{r['max_abs_err']:.3g} (tol {r['tol']:.3g}){extra}")
 
@@ -517,6 +644,9 @@ def main():
             say(f"[profile {tag}] P-frame {label}: wall {p['wall_ms']:.1f} ms,"
                 f" device busy {p['device_busy_ms']:.1f} ms, idle share "
                 f"{p['idle_share']:.3f}; top: {top}")
+            ours = ", ".join(f"{k} {v['ms']:.3f} ms x{v['launches']}"
+                             for k, v in p["port_kernels"].items())
+            say(f"[profile {tag}] P-frame {label}: port kernels: {ours}")
 
     # one entry per kernel: its first (main-path) shape, and its launches
     # summed over the two GOPs (each read with the counts reset before it)

@@ -34,7 +34,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point and argument types of each source (see the .cu files)
 SIGNATURES = {
     "warp": ("vcm_warp", [ctypes.POINTER(_P), ctypes.POINTER(_P),
-                          ctypes.POINTER(_I), _I, _P, _I, _I, _I, _I, _P]),
+                          ctypes.POINTER(_I), _I, _P] + [_I] * 5 + [_P]),
     "subpel_conv1x1": ("vcm_subpel_conv1x1", [_P] * 4 + [_I] * 7 + [_P]),
     "pixel_shuffle": ("vcm_pixel_shuffle_relayout", [_P] * 2 + [_I] * 6
                       + [_P]),
@@ -116,10 +116,12 @@ def check(rc: int, what: str) -> None:
                            f"cudaError {rc}")
 
 
-def stream_ptr(t) -> ctypes.c_void_p:
+def stream_ptr(t) -> int:
+    """PyTorch's current stream on `t`'s device, as the raw cudaStream_t
+    (the call Triton's launcher makes; cheaper than a Stream object)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def dtype_code(t) -> int:

@@ -11,7 +11,8 @@ tensors that share one flow in one launch, without concatenating them.
 
 On a CPU tensor the wrappers run the plain version; on a CUDA tensor they
 launch `csrc/warp.cu` (which rounds every op as the plain version does,
-so the two agree bit for bit) or raise.
+so the two agree bit for bit) or raise. The kernel reads an f32 or bf16
+flow as it is; the coordinates are f32 in both versions.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ MAX_TENSORS = 4  # csrc/warp.cu kMaxTensors
 
 def nhwc_dense(t: torch.Tensor) -> bool:
     """True when an NCHW tensor's memory is dense NHWC."""
-    return t.dim() == 4 and t.permute(0, 2, 3, 1).is_contiguous()
+    return t.dim() == 4 and t.is_contiguous(memory_format=torch.channels_last)
 
 
 def _clamped_coords(flow):
@@ -82,16 +83,19 @@ def warp_cuda(ims, flow):
                              f"{im.stride()} is not NHWC-dense at the flow's "
                              "size")
     code = cuda_build.dtype_code(ims[0])
-    flow32 = flow.float()  # coordinates are f32 whatever the data type
+    # the kernel reads an f32 or bf16 flow and widens it in registers
+    if flow.dtype not in (torch.float32, torch.bfloat16):
+        flow = flow.float()
     outs = [torch.empty_like(im, memory_format=torch.channels_last)
             for im in ims]
     k = len(ims)
     src = (ctypes.c_void_p * k)(*[im.data_ptr() for im in ims])
     dst = (ctypes.c_void_p * k)(*[o.data_ptr() for o in outs])
     chans = (ctypes.c_int * k)(*[im.shape[1] for im in ims])
-    rc = cuda_build.launcher("warp")(src, dst, chans, k, flow32.data_ptr(),
+    rc = cuda_build.launcher("warp")(src, dst, chans, k, flow.data_ptr(),
                                      n, h, w, code,
-                                     cuda_build.stream_ptr(flow32))
+                                     cuda_build.dtype_code(flow),
+                                     cuda_build.stream_ptr(flow))
     cuda_build.check(rc, "warp")
     cuda_build.LAUNCHES["warp"] += 1
     return outs
