@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch/CUDA port on one GPU: kernels, bench, GOPs.
+"""Smoke run of the PyTorch/CUDA port on one GPU: kernels, bench, GOPs, serving.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -23,7 +23,19 @@ result line):
    (64/64/96), one I-frame + 3 P-frames of seeded moving 1088x1920 frames
    encoded into .bin files and decoded, in f32 with the exact warp and in
    bf16 with fast_warp; every decoded frame must equal the encoder's DPB
-   recon bit for bit, and every kernel of the path must have launched.
+   recon bit for bit, and every kernel of the path must have launched;
+6. serving: kernels A-D launched at N = 2 give each row the bits of its
+   N = 1 launch; two sequences at two rate points, I + 2 P at N = 2,
+   through compress_batch / decompress_batch in f32 (exact warp) and in
+   bf16 with fast_warp, streams byte-equal to each row coded alone and
+   the batch decode equal to the encoder's DPB and to each row decoded
+   alone (launch counts reset before the batched run, peak memory);
+   two threads on their own CUDA streams through one codec, equal to one
+   thread; the port bench's --write-stream (1 and 2 streams) and
+   --pipelined-encode / --pipelined-decode (1 and 2 sessions) in bf16;
+   encode_gop / decode_gop of 4 bf16 fast_warp P-frames beside a loop of
+   compress / decompress calls (wall, device-busy, idle share). Every
+   line names the card and its power limit.
 
 The last three lines of standard output are the `kernels` JSON object, the
 nvidia-smi line, and then {"ok": true, "device": {...}}. A longer record
@@ -510,50 +522,330 @@ def run_gop(intra, dmc, out_dir, tag, expect):
             "profile": profile}
 
 
-def profile_p_frame(vc, x, dpb):
-    """Where one chained P-frame's time goes (frame `x` coded against the
-    encoder's DPB `dpb`, then its stream decoded against the same DPB):
-    wall time under torch.profiler, device-busy time (the sum of kernel
-    times), the idle share, and the kernels that take the most device
-    time, for compress and decompress."""
+def profile_ms(fn):
+    """fn() under torch.profiler: wall ms, device-busy ms (the sum of
+    kernel times), the idle share, the kernels that take the most device
+    time and the port's kernels' sums."""
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    out = {}
-    stream = []
-    for label, fn in (
-            ("compress", lambda: stream.append(
-                vc.compress(x, dpb, PQ, PQ)["bit_stream"])),
-            ("decompress", lambda: vc.decompress(dpb, stream[0], H, W, PQ,
-                                                 PQ))):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        by_name: dict = {}
-        for e in kernels:
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
             ms, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.device_time / 1e3, n + 1)
-        busy = sum(ms for ms, _ in by_name.values())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-        ours = {}
-        for k, (ms, n) in by_name.items():
-            fn = next((f for f in PORT_KERNEL_FUNCS if f + "<" in k
-                       or f + "(" in k), None)
-            if fn:
-                t, c = ours.get(fn, (0.0, 0))
-                ours[fn] = (t + ms, c + n)
-        out[label] = {"wall_ms": wall, "device_busy_ms": busy,
-                      "idle_share": 1.0 - busy / wall,
-                      "top_kernels": [{"name": k[:90], "ms": v[0],
-                                       "launches": v[1]} for k, v in top],
-                      "port_kernels": {k: {"ms": v[0], "launches": v[1]}
-                                       for k, v in sorted(ours.items())}}
-    return out
+    busy = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    ours = {}
+    for k, (ms, n) in by_name.items():
+        f = next((f for f in PORT_KERNEL_FUNCS if f + "<" in k
+                  or f + "(" in k), None)
+        if f:
+            t, c = ours.get(f, (0.0, 0))
+            ours[f] = (t + ms, c + n)
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall,
+            "top_kernels": [{"name": k[:90], "ms": v[0], "launches": v[1]}
+                            for k, v in top],
+            "port_kernels": {k: {"ms": v[0], "launches": v[1]}
+                             for k, v in sorted(ours.items())}}
+
+
+def profile_p_frame(vc, x, dpb):
+    """Where one chained P-frame's time goes (frame `x` coded against the
+    encoder's DPB `dpb`, then its stream decoded against the same DPB),
+    for compress and decompress (profile_ms)."""
+    stream = []
+    return {"compress": profile_ms(lambda: stream.append(
+                vc.compress(x, dpb, PQ, PQ)["bit_stream"])),
+            "decompress": profile_ms(lambda: vc.decompress(
+                dpb, stream[0], H, W, PQ, PQ))}
+
+
+# ------------------------------------------------------------------ phase 6
+SERVE_IQ = (IQ, 0.3)  # the rate point of each stream of an N = 2 batch
+SERVE_PQ = (PQ, 0.45)
+
+
+def _row(t, i):
+    return t[i:i + 1]
+
+
+def check_kernels_batched(g):
+    """Kernels A-D at their headline shapes, f32 and bf16, launched at
+    N = 2: each row equals the N = 1 launch on that row bit for bit."""
+    from vcm_ts_tpu_torch.ops import subpel as ts
+    from vcm_ts_tpu_torch.ops import warp as tw
+    from vcm_ts_tpu_torch.ops import warp_twopass as td
+
+    def rnd(*shape, dtype):
+        return torch.randn(shape, device="cuda", generator=g).to(
+            dtype=dtype, memory_format=CL)
+
+    checked = []
+    for dtype in (torch.float32, torch.bfloat16):
+        flow = torch.cat([make_flow("iid", H, W, g) for _ in range(2)])
+        ims = [rnd(2, 3, H, W, dtype=dtype), rnd(2, 64, H, W, dtype=dtype)]
+        x_b = rnd(2, 64, H // 2, W // 2, dtype=dtype)
+        w_b = (torch.randn((4, 64, 32), device="cuda", generator=g)
+               / 8).to(dtype)
+        b_b = (torch.randn((4, 32), device="cuda", generator=g) * 0.1).to(
+            dtype)
+        x_c = rnd(2, 256, H // 2, W // 2, dtype=dtype)
+        im_d = rnd(2, 64, H, W, dtype=dtype)
+        flow_d = (flow * 4.5).contiguous(memory_format=CL)
+        cases = (
+            ("warp 67ch packed", lambda r: tw.warp_cuda(
+                [r(t) for t in ims], r(flow))),
+            ("subpel_conv1x1 64->32", lambda r: [ts.subpel_conv1x1_cuda(
+                r(x_b), w_b, b_b, 2)]),
+            ("pixel_shuffle_relayout C=64", lambda r: [ts.relayout_cuda(
+                r(x_c), 2)]),
+            ("warp_twopass 64ch D=24", lambda r: [td.warp_twopass_cuda(
+                r(im_d), r(flow_d), 24)]),
+        )
+        for name, fn in cases:
+            batched = fn(lambda t: t)
+            for i in range(2):
+                alone = fn(lambda t, i=i: _row(t, i))
+                if not all(torch.equal(_row(a, i), b)
+                           for a, b in zip(batched, alone)):
+                    raise AssertionError(f"{name} {dtype}: row {i} at N = 2 "
+                                         "differs from its N = 1 launch")
+            checked.append(f"{name} {str(dtype)[6:]}")
+    return checked
+
+
+def _qrows(qs):
+    return torch.tensor(qs, dtype=torch.float32).reshape(-1, 1, 1, 1)
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _dpb_equal(a, b):
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def run_serving_batch(ic, vc, tag, expect):
+    """Two sequences at two rate points, I + 2 P at N = 2 through
+    compress_batch / decompress_batch, against each row coded and decoded
+    alone: streams byte-equal, the batch decode equal to the encoder's DPB
+    and to the rows decoded alone, bit for bit, with the launch counts
+    reset before the batched pass. (Its convs run row by row, on the
+    cuDNN plans the GOPs before it made: no warm-up pass.)"""
+    from vcm_ts_tpu_torch.models.dmc import make_dpb
+    from vcm_ts_tpu_torch.ops import cuda_build
+
+    seqs = [moving_frames(3, H, W, seed=s) for s in (1, 2)]
+    xs = [torch.cat([sq[t] for sq in seqs]).cuda() for t in range(3)]
+    iq, pq = _qrows(SERVE_IQ), _qrows(SERVE_PQ)
+
+    def batched():
+        ms = {}
+        i_s, ms["i_compress"] = _timed(lambda: ic.compress_batch(xs[0], iq))
+        r0, ms["i_decompress"] = _timed(
+            lambda: ic.decompress_batch(i_s, H, W, iq))
+        enc, dec, p_s = make_dpb(r0), make_dpb(r0), []
+        for t in (1, 2):
+            out, ms[f"p{t}_compress"] = _timed(lambda: vc.compress_batch(
+                xs[t], enc, pq, pq, t == 1))
+            d, ms[f"p{t}_decompress"] = _timed(lambda: vc.decompress_batch(
+                dec, out["bit_streams"], H, W, pq, pq, t == 1))
+            enc, dec = out["dpb"], d["dpb"]
+            if not _dpb_equal(enc, dec):
+                raise AssertionError(f"serving {tag}: P-frame {t} batch "
+                                     "decode != encoder DPB")
+            p_s.append(out["bit_streams"])
+        return i_s, r0, p_s, enc, ms
+
+    cuda_build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    i_s, r0, p_s, enc, ms_b = batched()
+    launches = dict(cuda_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    wrong = {k: v for k, v in launches.items() if (v > 0) != (k in expect)}
+    if wrong:
+        raise AssertionError(f"serving {tag}: must launch exactly {expect}, "
+                             f"launches {launches}")
+
+    ms_1 = {}
+    for i in range(2):
+        q_i, q_p = _row(iq, i), _row(pq, i)
+        s, ms = _timed(lambda: ic.compress(_row(xs[0], i), q_i))
+        ms_1["i_compress"] = ms_1.get("i_compress", 0.0) + ms
+        if s != i_s[i]:
+            raise AssertionError(f"serving {tag}: I stream {i} batched != "
+                                 "alone")
+        r, ms = _timed(lambda: ic.decompress(s, H, W, q_i))
+        ms_1["i_decompress"] = ms_1.get("i_decompress", 0.0) + ms
+        if not torch.equal(r, _row(r0, i)):
+            raise AssertionError(f"serving {tag}: I row {i} batch decode "
+                                 "!= alone")
+        e_dpb, d_dpb = make_dpb(r), make_dpb(r)
+        for t in (1, 2):
+            out, ms = _timed(lambda: vc.compress(_row(xs[t], i), e_dpb, q_p,
+                                                 q_p, t == 1))
+            ms_1[f"p{t}_compress"] = ms_1.get(f"p{t}_compress", 0.0) + ms
+            if out["bit_stream"] != p_s[t - 1][i]:
+                raise AssertionError(f"serving {tag}: P-frame {t} stream {i}"
+                                     " batched != alone")
+            d, ms = _timed(lambda: vc.decompress(d_dpb, out["bit_stream"], H,
+                                                 W, q_p, q_p, t == 1))
+            ms_1[f"p{t}_decompress"] = ms_1.get(f"p{t}_decompress", 0.0) + ms
+            e_dpb, d_dpb = out["dpb"], d["dpb"]
+        if not (_dpb_equal(e_dpb, d_dpb)
+                and _dpb_equal(d_dpb, {k: _row(v, i)
+                                       for k, v in enc.items()})):
+            raise AssertionError(f"serving {tag}: row {i} decoded alone != "
+                                 "the batch")
+    return {"tag": tag, "iq": SERVE_IQ, "pq": SERVE_PQ,
+            "stream_bytes": [[len(s) for s in i_s]]
+            + [[len(s) for s in ps] for ps in p_s],
+            "batch_ms": ms_b, "two_alone_ms": ms_1, "launches": launches,
+            "peak_bytes": peak}
+
+
+def run_serving_threads(ic, vc, tag):
+    """Two threads, each on its own CUDA stream, run encode_gop and then
+    decode_gop of one I + 2 P sequence through one codec: each equals the
+    single-thread result (timed after a warm-up in each thread)."""
+    from vcm_ts_tpu_torch.codec.engine import run_sessions
+    from vcm_ts_tpu_torch.models.dmc import make_dpb
+
+    frames = [f.cuda() for f in moving_frames(3, H, W, seed=4)]
+    r0 = ic.decompress(ic.compress(frames[0], IQ), H, W, IQ)
+    dpb0 = make_dpb(r0)
+    ref, _ = vc.encode_gop(frames[1:], dpb0, PQ, PQ)
+    ref_rec, _ = vc.decode_gop(dpb0, ref, H, W, PQ, PQ)
+    def enc():
+        return vc.encode_gop(frames[1:], dpb0, PQ, PQ)[0]
+
+    def dec():
+        return vc.decode_gop(dpb0, ref, H, W, PQ, PQ)[0]
+
+    t_enc, encs = run_sessions([enc] * 2, "cuda", warmup=enc)
+    t_dec, decs = run_sessions([dec] * 2, "cuda", warmup=dec)
+    for k in range(2):
+        if encs[k] != ref:
+            raise AssertionError(f"threads {tag}: session {k} wrote other "
+                                 "streams than one thread")
+        if not all(torch.equal(a, b) for a, b in zip(decs[k], ref_rec)):
+            raise AssertionError(f"threads {tag}: session {k} decoded other "
+                                 "frames than one thread")
+    return {"tag": tag, "sessions": 2, "p_frames": 2,
+            "encode_s": t_enc, "decode_s": t_dec}
+
+
+def profile_gop_overlap(ic, vc, tag, n_p=4):
+    """encode_gop / decode_gop of n_p P-frames beside a sequential loop of
+    compress / decompress calls (no overlap): wall ms without the profiler
+    (min of two, in the order loop, gop, gop, loop), and wall, device-busy
+    and idle share under it (profile_ms)."""
+    from vcm_ts_tpu_torch.models.dmc import make_dpb
+
+    frames = [f.cuda() for f in moving_frames(n_p + 1, H, W, seed=5)]
+    r0 = ic.decompress(ic.compress(frames[0], IQ), H, W, IQ)
+    dpb0 = make_dpb(r0)
+    p = frames[1:]
+    streams, _ = vc.encode_gop(p, dpb0, PQ, PQ)
+
+    def enc_loop():
+        dpb = dpb0
+        for t, x in enumerate(p):
+            dpb = vc.compress(x, dpb, PQ, PQ, t == 0)["dpb"]
+
+    def dec_loop():
+        dpb = dpb0
+        for t, s in enumerate(streams):
+            dpb = vc.decompress(dpb, s, H, W, PQ, PQ, t == 0)["dpb"]
+
+    runs = {"compress loop": enc_loop,
+            "encode_gop": lambda: vc.encode_gop(p, dpb0, PQ, PQ),
+            "decompress loop": dec_loop,
+            "decode_gop": lambda: vc.decode_gop(dpb0, streams, H, W, PQ,
+                                                PQ)}
+    wall = {k: [] for k in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for k in order:
+            wall[k].append(_timed(runs[k])[1])
+    out = {}
+    for k, fn in runs.items():
+        prof = profile_ms(fn)
+        out[k] = {"wall_ms": min(wall[k]), "fps": n_p * 1e3 / min(wall[k]),
+                  **{f"profiled_{m}": prof[m] for m in
+                     ("wall_ms", "device_busy_ms", "idle_share")},
+                  "top_kernels": prof["top_kernels"][:5]}
+    return {"tag": tag, "p_frames": n_p, **out}
+
+
+def run_serving(intra, dmc, intra16, dmc16, smi):
+    """Phase 6: batched serving, concurrent sessions, the bench's serving
+    modes and the overlapped GOP loops; every line ends with the card."""
+    from vcm_ts_tpu_torch.codec.engine import IntraCodec, VideoCodec
+
+    rec = {"batch": [], "threads": [], "bench": [], "overlap": None}
+    for tag, (mi, md), expect in (
+            ("f32", (intra, dmc), {"warp", "subpel_conv1x1",
+                                   "pixel_shuffle_relayout"}),
+            ("bf16_fast_warp", (intra16, dmc16),
+             {"warp_twopass", "subpel_conv1x1", "pixel_shuffle_relayout"})):
+        ic, vc = IntraCodec(mi, device="cuda"), VideoCodec(md, device="cuda")
+        ic.update()
+        vc.update()
+        t = time.perf_counter()
+        b = run_serving_batch(ic, vc, tag, expect)
+        rec["batch"].append(b)
+        say(f"[serving {tag}] N=2 I+2P {W}x{H}, q {SERVE_IQ}/{SERVE_PQ}: "
+            "batched streams == each row alone, batch decode == encoder DPB "
+            f"== rows decoded alone; stream bytes {b['stream_bytes']}; "
+            f"batch ms {b['batch_ms']}; two rows alone ms "
+            f"{b['two_alone_ms']}; peak {b['peak_bytes'] / 2**30:.2f} GiB; "
+            f"launches {b['launches']} ({time.perf_counter() - t:.1f} s; "
+            f"{smi})")
+        th = run_serving_threads(ic, vc, tag)
+        rec["threads"].append(th)
+        say(f"[serving {tag}] 2 threads x (encode_gop, decode_gop) of 2 "
+            "P-frames on their own streams == one thread: encode "
+            f"{th['encode_s']:.3f} s, decode {th['decode_s']:.3f} s ({smi})")
+        if tag == "bf16_fast_warp":
+            ov = profile_gop_overlap(ic, vc, tag)
+            rec["overlap"] = ov
+            for k in ("compress loop", "encode_gop", "decompress loop",
+                      "decode_gop"):
+                v = ov[k]
+                say(f"[serving {tag}] {k} of {ov['p_frames']} P-frames: "
+                    f"wall {v['wall_ms']:.1f} ms ({v['fps']:.3f} fps); "
+                    f"profiled wall {v['profiled_wall_ms']:.1f} ms, device "
+                    f"busy {v['profiled_device_busy_ms']:.1f} ms, idle share "
+                    f"{v['profiled_idle_share']:.3f} ({smi})")
+    common = ["--size", f"{H}x{W}", "--frames", "4", "--warmup", "1",
+              "--runs", "1", "--dtype", "bf16"]
+    for label, extra in (("write-stream", ["--write-stream"]),
+                         ("write-stream x2", ["--write-stream", "--streams",
+                                              "2"]),
+                         ("pipelined-encode x1", ["--pipelined-encode"]),
+                         ("pipelined-encode x2", ["--pipelined-encode",
+                                                  "--streams", "2"]),
+                         ("pipelined-decode x1", ["--pipelined-decode"]),
+                         ("pipelined-decode x2", ["--pipelined-decode",
+                                                  "--streams", "2"])):
+        b = run_bench(f"bf16 {label}", common + extra)
+        rec["bench"].append(b)
+        say(f"[serving bench] bf16 {label}: {b['value']} fps ({b['metric']}"
+            f"), launches {b['launches']} ({b['held_s']:.1f} s; {smi})")
+    return rec
 
 
 def main():
@@ -561,6 +853,7 @@ def main():
     ap.add_argument("--out", default=os.path.join(ROOT, "smoke_out"),
                     help="directory for chip_smoke.json and the .bin files")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs one CUDA device", file=sys.stderr)
@@ -623,12 +916,12 @@ def main():
     out_dir = args.out
     os.makedirs(out_dir, exist_ok=True)
     gops = []
+    intra16 = cast_params(make_intra("cuda"), torch.bfloat16)
+    dmc16 = cast_params(make_dmc("cuda", fast_warp=True), torch.bfloat16)
     for tag, models, expect in (
             ("f32", (intra, dmc), {"warp", "subpel_conv1x1",
                                    "pixel_shuffle_relayout"}),
-            ("bf16_fast_warp",
-             (cast_params(make_intra("cuda"), torch.bfloat16),
-              cast_params(make_dmc("cuda", fast_warp=True), torch.bfloat16)),
+            ("bf16_fast_warp", (intra16, dmc16),
              {"warp_twopass", "subpel_conv1x1", "pixel_shuffle_relayout"})):
         t = time.perf_counter()
         gop = run_gop(*models, out_dir, tag, expect)
@@ -648,8 +941,16 @@ def main():
                              for k, v in p["port_kernels"].items())
             say(f"[profile {tag}] P-frame {label}: port kernels: {ours}")
 
+    t = time.perf_counter()
+    batched = check_kernels_batched(g)
+    say(f"[serving] kernels at N=2, each row == its N=1 launch bit for bit: "
+        f"{', '.join(batched)} ({time.perf_counter() - t:.1f} s; {smi})")
+    serving = run_serving(intra, dmc, intra16, dmc16, smi)
+
     # one entry per kernel: its first (main-path) shape, and its launches
-    # summed over the two GOPs (each read with the counts reset before it)
+    # summed over the main paths, the two GOPs and the two batched serving
+    # runs (each read with the counts reset just before it)
+    paths = gops + serving["batch"]
     kernels = []
     for name in ("warp", "subpel_conv1x1", "pixel_shuffle_relayout",
                  "warp_twopass"):
@@ -657,15 +958,18 @@ def main():
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": sum(gp["launches"][name] for gp in gops),
+            "launches": sum(p["launches"][name] for p in paths),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"]})
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "kernel_rows": rows, "reference": ref,
-                   "bench": benches, "gops": gops, "kernels": kernels}, f,
+                   "bench": benches, "gops": gops, "serving": serving,
+                   "kernels_batched": batched, "kernels": kernels}, f,
                   indent=1)
+    say(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s "
+        f"({smi})")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -248,8 +248,8 @@ def test_subpel_conv_caches_kmajor_weights_per_load():
     """The k-major form is derived once per load, not per call, and a
     reload refreshes it."""
     m = tl.SubpelConv(8, 4, 2, 1)
-    w1 = m._weights()
-    assert m._weights()[0] is w1[0]
+    w1 = m.kmajor_weights()
+    assert m.kmajor_weights()[0] is w1[0]
     with torch.no_grad():
         m._modules["0"].weight.mul_(2.0)
-    assert m._weights()[0] is not w1[0]
+    assert m.kmajor_weights()[0] is not w1[0]

@@ -129,9 +129,9 @@ def test_cast_refreshes_the_kmajor_weight_cache():
     from vcm_ts_tpu_torch.ops.layers import SubpelConv
 
     m = SubpelConv(8, 4, 2, 1)
-    assert m._weights()[0].dtype == F32
+    assert m.kmajor_weights()[0].dtype == F32
     tp.cast_params(m, BF16)
-    assert all(w.dtype == BF16 for w in m._weights())
+    assert all(w.dtype == BF16 for w in m.kmajor_weights())
 
 
 # ---------------------------------------------------------- per module, bf16
@@ -281,19 +281,26 @@ def test_gop_decodes_to_the_encoder_recon(dmc, policy):
 
 
 # --------------------------------------------------------------- port bench
-@pytest.mark.parametrize("mode", [["--estimate-only"], ["--gop", "2"], []])
+@pytest.mark.parametrize("mode", [
+    ["--estimate-only"], ["--gop", "2"], [], ["--write-stream"],
+    ["--write-stream", "--streams", "2"],
+    ["--pipelined-encode", "--streams", "2"],
+    ["--pipelined-decode", "--streams", "2"]])
 def test_port_bench_emits_bench_py_keys(mode, monkeypatch, capsys):
     """The port bench on the CPU prints one JSON line whose keys are those
-    bench.py prints in the same mode. bench.py runs with its timed
-    functions and its model init stubbed out (its keys do not depend on
-    them); the suite's write_stream_2x_aggregate_fps keys need
-    compress_batch, which is not ported, so the port leaves them out."""
+    bench.py prints in the same mode (the default suite's
+    write_stream_2x_aggregate_fps keys included). bench.py runs with its
+    timed functions and its model init stubbed out (its keys do not depend
+    on them)."""
     import bench as jbench
     from vcm_ts_tpu.utils import common as jcommon
 
     for fn in ("bench_estimation", "bench_pipelined_encode",
-               "bench_pipelined_decode", "bench_batched_write"):
+               "bench_pipelined_decode", "bench_batched_write",
+               "bench_seq_write"):
         monkeypatch.setattr(jbench, fn, lambda ctx: 1.0)
+    for fn in ("bench_pipelined_encode_multi", "bench_pipelined_decode_multi"):
+        monkeypatch.setattr(jbench, fn, lambda ctx, n: 1.0)
     monkeypatch.setattr(jbench, "bench_gop", lambda ctx: (1.0, 1.0))
     monkeypatch.setattr(jcommon, "enable_compilation_cache", lambda: "")
     monkeypatch.setattr(JDMC, "init", lambda self, *a, **k: {
@@ -304,14 +311,16 @@ def test_port_bench_emits_bench_py_keys(mode, monkeypatch, capsys):
     want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert tbench.main(["--device", "cpu", "--warmup", "1", *args]) == 0
     got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    batched = "write_stream_2x_aggregate_fps"
-    assert set(got) == set(want) - {batched, batched + "_min",
-                                    batched + "_max"}
+    assert set(got) == set(want)
     assert "suite_error" not in got and got["value"] > 0
 
 
 def test_port_bench_refuses_what_is_not_ported():
-    for flag in (["--write-stream"], ["--train-step"],
-                 ["--pipelined-decode", "--streams", "2"]):
-        with pytest.raises(SystemExit, match="ROADMAP.md"):
-            tbench.run(tbench.parse_args(["--device", "cpu", *flag]))
+    """Only --train-step is still refused; the serving modes run."""
+    with pytest.raises(SystemExit, match="ROADMAP.md"):
+        tbench.run(tbench.parse_args(["--device", "cpu", "--train-step"]))
+    for flag in (["--write-stream"], ["--write-stream", "--streams", "2"],
+                 ["--pipelined-decode", "--streams", "2"],
+                 ["--pipelined-encode", "--streams", "2"]):
+        args = tbench.parse_args(["--device", "cpu", *flag])
+        tbench._refuse(args, args.streams)

@@ -4,29 +4,34 @@
     python3 -m vcm_ts_tpu_torch.bench --device cpu --size 64x64 --frames 2 \\
         --runs 1
 
-Counterpart of the JAX package's bench.py, for the modes whose modules are
-ported: the same flags, and ONE JSON line with the same keys,
+Counterpart of the JAX package's bench.py: the same flags, and ONE JSON
+line with the same keys,
   {"metric": ..., "value": N, "unit": "fps", "vs_baseline": N, ...}.
 vs_baseline is against the north star of 60 fps (BASELINE.md).
 
 Modes (the protocol of the reference's eval harness: per-frame DMC
 encode+decode, 1080p padded to 1088x1920, DPB threaded frame to frame):
 - default: the suite, the entropy-estimated fps (median, min and max of
-  --runs) plus single-stream pipelined encode and decode and, in bf16, the
-  f32 estimation fps. Its `write_stream_2x_aggregate_fps` keys (and their
-  _min/_max) need compress_batch, which is not ported, so they are absent;
+  --runs) plus single-stream pipelined encode and decode, the 2-stream
+  batched write-stream aggregate (`write_stream_2x_aggregate_fps`, the
+  frames doubled along N) and, in bf16, the f32 estimation fps;
 - --estimate-only (also implied by --fast-warp, --fast-shuffle and
   --streams N, as in bench.py): the entropy-estimated fps alone;
 - --latency: blocking per-frame latency percentiles;
 - --gop N: one IntraNoAR I-frame + (N-1) DMC P-frames through real streams;
-- --pipelined-encode / --pipelined-decode: single-stream GOP throughput.
+- --pipelined-encode / --pipelined-decode: GOP throughput through
+  encode_gop / decode_gop (host rANS overlapped with device work); with
+  --streams N, N sessions at once through ONE codec, each on its own
+  thread and CUDA stream (aggregate fps);
+- --write-stream: per-frame compress + decompress through real streams;
+  with --streams N, N streams through compress_batch / decompress_batch
+  (aggregate fps).
 
---fast-shuffle is accepted: the port always runs kernels B and C. Not
-ported: --write-stream, multi-stream --pipelined-*, and --train-step, which
-raise SystemExit. The TPU probe, chip sentinel and compilation cache of
-bench.py have no counterpart here. The completion barrier is
-torch.cuda.synchronize(). The GOP loops run sequentially: the JAX
-engine's overlap of host rANS with device work is not ported.
+--fast-shuffle is accepted: the port always runs kernels B and C.
+--train-step is not ported (training is a later slice) and raises
+SystemExit. The TPU probe, chip sentinel and compilation cache of bench.py
+have no counterpart here. The completion barrier is
+torch.cuda.synchronize().
 
 Weights are the seeded, damped init (utils/weights.py): no DMC or
 IntraNoAR checkpoint ships in the repo. `--device` defaults to cuda.
@@ -43,7 +48,7 @@ import traceback
 import numpy as np
 import torch
 
-from .codec.engine import IntraCodec, VideoCodec
+from .codec.engine import IntraCodec, VideoCodec, run_sessions
 from .models.dmc import make_dpb
 from .utils.device import resolve_device, set_codec_numerics
 from .utils.precision import cast_params, cast_params_mixed
@@ -62,7 +67,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="mixed = bf16 params except the reconstruction "
                          "path, which stays f32 (utils/precision.py)")
     ap.add_argument("--write-stream", action="store_true",
-                    help="not ported (ROADMAP.md Queue 1 item 8)")
+                    help="real-bitstream compress + decompress per frame "
+                         "(batched with --streams N)")
     ap.add_argument("--size", default="1088x1920")
     ap.add_argument("--fast-warp", action="store_true",
                     help="two-pass warp, kernel D (ops/warp_twopass.py)")
@@ -75,8 +81,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--pipelined-decode", action="store_true",
                     help="decode-only GOP throughput, real bitstream")
     ap.add_argument("--streams", type=int, default=1,
-                    help="N streams through the batch axis of the "
-                         "entropy-estimated forward")
+                    help="N streams: through the batch axis (estimation, "
+                         "--write-stream) or as N concurrent sessions "
+                         "(--pipelined-*)")
     ap.add_argument("--latency", action="store_true",
                     help="per-frame latency (ms p50/p95/p99) of the "
                          "entropy-estimated forward, each frame blocking")
@@ -107,17 +114,11 @@ def _cast(model, dtype: str):
 
 
 def _refuse(args, ns: int) -> None:
-    """SystemExit for the modes of bench.py that are not ported."""
+    """SystemExit for what bench.py has and the port does not, and for
+    single-stream modes asked for several streams (bench.py asserts)."""
     if args.train_step:
         raise SystemExit("--train-step: training is not ported yet "
                          "(ROADMAP.md Queue 1 item 10)")
-    if args.write_stream:
-        raise SystemExit("--write-stream is not ported yet: its batched "
-                         "form needs compress_batch/decompress_batch "
-                         "(ROADMAP.md Queue 1 items 7 and 8)")
-    if ns > 1 and (args.pipelined_encode or args.pipelined_decode):
-        raise SystemExit("multi-stream --pipelined-* is not ported yet "
-                         "(ROADMAP.md Queue 1 item 8)")
     if ns > 1 and (args.latency or args.gop):
         raise SystemExit("--latency and --gop are single-stream")
 
@@ -167,11 +168,22 @@ def run(args) -> dict:
         which = "DECODE" if args.pipelined_decode else "ENCODE"
         fn = (bench_pipelined_decode if args.pipelined_decode
               else bench_pipelined_encode)
-        fps = fn(ctx)
-        return {"metric": f"{size_tag} P-frame pipelined {which} fps/chip "
-                          f"({args.dtype}, real bitstream)",
-                "value": round(fps, 3), "unit": "fps",
-                "vs_baseline": round(fps / NORTH_STAR_FPS, 4)}
+        if ns == 1:
+            return _fps(f"{size_tag} P-frame pipelined {which} fps/chip "
+                        f"({args.dtype}, real bitstream)", fn(ctx))
+        # ns single-stream sessions at once through one codec
+        one = [f[:1] for f in frames]
+        fps = fn(dict(ctx, frames=one, dpb=make_dpb(one[0])), ns)
+        return _fps(f"{size_tag} P-frame pipelined {which} aggregate "
+                    f"fps/chip ({args.dtype}, real bitstream, {ns} "
+                    "interleaved streams)", fps)
+    if args.write_stream and ns > 1:
+        return _fps(f"{size_tag} P-frame enc+dec AGGREGATE fps/chip "
+                    f"({args.dtype}, real bitstream, {ns} streams batched)",
+                    bench_batched_write(ctx))
+    if args.write_stream:
+        return _fps(f"{size_tag} P-frame enc+dec fps/chip ({args.dtype}, "
+                    "real bitstream)", bench_seq_write(ctx))
 
     est_fps, est_min, est_max = _median_of(lambda: bench_estimation(ctx),
                                            args.runs)
@@ -201,6 +213,10 @@ def run(args) -> dict:
     try:
         _suite("pipelined_encode_fps", lambda: bench_pipelined_encode(ctx))
         _suite("pipelined_decode_fps", lambda: bench_pipelined_decode(ctx))
+        two = [torch.cat([f, f]) for f in frames]
+        ctx2 = dict(ctx, frames=two, dpb=make_dpb(two[0]))
+        _suite("write_stream_2x_aggregate_fps",
+               lambda: bench_batched_write(ctx2))
         if args.dtype == "bf16":
             ctx32 = dict(ctx, model=make_dmc(device, args.fast_warp),
                          frames=[f.float() for f in frames])
@@ -209,6 +225,11 @@ def run(args) -> dict:
         traceback.print_exc()
         result["suite_error"] = f"{type(e).__name__}: {e}"
     return result
+
+
+def _fps(metric: str, fps: float) -> dict:
+    return {"metric": metric, "value": round(fps, 3), "unit": "fps",
+            "vs_baseline": round(fps / NORTH_STAR_FPS, 4)}
 
 
 def bench_estimation(ctx) -> float:
@@ -236,31 +257,76 @@ def _make_codec(ctx) -> VideoCodec:
     return codec
 
 
-def bench_pipelined_encode(ctx) -> float:
+def bench_pipelined_encode(ctx, n_sessions: int = 1) -> float:
+    """encode_gop over --frames, in n_sessions sessions at once through one
+    codec (run_sessions: a thread and a CUDA stream each, warmed up in that
+    thread; the engine keeps no mutable state across a call). Aggregate
+    frames/s."""
     args, frames, dpb = ctx["args"], ctx["frames"], ctx["dpb"]
     codec = _make_codec(ctx)
-    codec.encode_gop(frames[:2], dpb, PQ, PQ)  # warm both variants
     seq = [frames[i % 4] for i in range(args.frames)]
-    ctx["sync"]()
-    t0 = time.perf_counter()
-    codec.encode_gop(seq, dpb, PQ, PQ)
-    ctx["sync"]()
-    return args.frames / (time.perf_counter() - t0)
+    dt, _ = run_sessions(
+        [lambda: codec.encode_gop(seq, dpb, PQ, PQ)] * n_sessions,
+        ctx["device"], warmup=lambda: codec.encode_gop(seq[:2], dpb, PQ, PQ))
+    return n_sessions * args.frames / dt
 
 
-def bench_pipelined_decode(ctx) -> float:
+def bench_pipelined_decode(ctx, n_sessions: int = 1) -> float:
+    """decode_gop over --frames, in n_sessions sessions at once through one
+    codec: one session's host rANS and index waits may overlap the others'
+    device stages. Aggregate frames/s."""
     args, frames, dpb = ctx["args"], ctx["frames"], ctx["dpb"]
     h, w = ctx["h"], ctx["w"]
     codec = _make_codec(ctx)
     seq = [frames[i % 4] for i in range(args.frames)]
-    codec.encode_gop(seq[:2], dpb, PQ, PQ)  # warm
     streams, _ = codec.encode_gop(seq, dpb, PQ, PQ)
-    codec.decode_gop(dpb, streams[:2], h, w, PQ, PQ)  # warm
+    dt, _ = run_sessions(
+        [lambda: codec.decode_gop(dpb, streams, h, w, PQ, PQ)] * n_sessions,
+        ctx["device"],
+        warmup=lambda: codec.decode_gop(dpb, streams[:2], h, w, PQ, PQ))
+    return n_sessions * args.frames / dt
+
+
+def _write_fps(ctx, run_frame) -> float:
+    """--warmup frames off the first DPB, then --frames chained; frames/s
+    over every stream of the batch."""
+    args, frames = ctx["args"], ctx["frames"]
+    dpb = ctx["dpb"]
+    for i in range(max(2, args.warmup)):
+        run_frame(i, dpb, i == 0)
     ctx["sync"]()
     t0 = time.perf_counter()
-    codec.decode_gop(dpb, streams, h, w, PQ, PQ)
+    cur = dpb
+    for i in range(args.frames):
+        cur = run_frame(i, cur, i == 0)
     ctx["sync"]()
-    return args.frames / (time.perf_counter() - t0)
+    return frames[0].shape[0] * args.frames / (time.perf_counter() - t0)
+
+
+def bench_batched_write(ctx) -> float:
+    """N streams per frame through compress_batch + decompress_batch."""
+    frames, h, w = ctx["frames"], ctx["h"], ctx["w"]
+    codec = _make_codec(ctx)
+
+    def run_frame(i, dpb, first):
+        out = codec.compress_batch(frames[i % 4], dpb, PQ, PQ, first)
+        return codec.decompress_batch(dpb, out["bit_streams"], h, w, PQ, PQ,
+                                      first)["dpb"]
+
+    return _write_fps(ctx, run_frame)
+
+
+def bench_seq_write(ctx) -> float:
+    """One stream per frame through compress + decompress."""
+    frames, h, w = ctx["frames"], ctx["h"], ctx["w"]
+    codec = _make_codec(ctx)
+
+    def run_frame(i, dpb, first):
+        out = codec.compress(frames[i % 4], dpb, PQ, PQ, first)
+        return codec.decompress(dpb, out["bit_stream"], h, w, PQ, PQ,
+                                first)["dpb"]
+
+    return _write_fps(ctx, run_frame)
 
 
 def bench_latency(ctx) -> dict:

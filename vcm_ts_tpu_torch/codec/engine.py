@@ -1,9 +1,10 @@
 """Codec engines: run the models' stages around the host rANS coder.
 
-Counterpart of the single-stream part of vcm_ts_tpu/codec/engine.py
+Counterpart of the single-device part of vcm_ts_tpu/codec/engine.py
 (`IntraCodec`, `VideoCodec`): `update`, `forward`, `compress`,
-`decompress`, `encode_gop`, `decode_gop`, `encode_decode`. Between stages
-only int16 symbol planes and uint8 scale-index planes cross to the host.
+`compress_batch`, `decompress`, `decompress_batch`, `encode_gop`,
+`decode_gop`, `encode_decode`. Between stages only int16 symbol planes and
+uint8 scale-index planes cross to the host.
 
 The ENCODER derives every prior the stream depends on through the decoder's
 own stage methods (plus encoder-only analysis), so encoder and decoder see
@@ -12,11 +13,36 @@ to pick the same algorithm for the same conv every time:
 `set_codec_numerics` fixes that (deterministic, no benchmark, no TF32), and
 every symbol plane enters a stage in one canonical form (parameter dtype,
 dense NHWC), whether it came from the encoder or from the stream.
+
+Host and device overlap. The device's work is queued and the host waits
+only where it needs a plane: each device->host transfer is a `_Pull` (all
+of a frame's planes queued at once into pinned memory, one event behind
+them), uploads do not wait, and nothing else on the stage path
+synchronizes (the q scales and the index constants are made on the
+device). `encode_gop` host-encodes frame t while frame t+1's chain runs;
+the decoders host-decode a plane with static indexes while a stage runs
+(the next stream's mv_z during stage 1 in `decode_gop`, z during stage
+3a), and `decode_gop` keeps the DPB on the device.
+
+Batches and sessions. `compress_batch` / `decompress_batch` carry N
+independent streams through the batch axis of every stage, one rANS stream
+per row, with per-row q scales (N, 1, 1, 1); the per-stream rANS work runs
+on a thread pool (the native coder releases the GIL). The ops whose
+libraries sum in an order that follows the batch size go row by row
+(ops/rowwise.py), so each row's stream, DPB and recon are those of the
+row coded alone, bit for bit. The engines keep no
+mutable state across a call, so threads may run sessions through one
+codec at once, each on its own CUDA stream: every launch goes on the
+calling thread's current stream. A caller orders its stream after the work
+that made its inputs (`stream.wait_stream`).
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -25,8 +51,11 @@ from ..entropy import bit_estimator as be
 from ..entropy.coder import EntropyCoder
 from ..entropy.gaussian import GaussianCoder
 from ..models import common as cm
-from ..utils.device import resolve_device, set_codec_numerics
+from ..ops.layers import SubpelConv
+from ..utils.device import resolve_device, set_codec_numerics, to_device
 from . import bitstream as bs
+
+MAX_RANS_THREADS = 8  # host threads of one batched call's rANS work
 
 
 def _i16(x: torch.Tensor) -> torch.Tensor:
@@ -51,9 +80,108 @@ def param_dtype(model: torch.nn.Module) -> torch.dtype:
     return p.dtype
 
 
-def _host(planes: dict) -> dict:
-    """Device planes -> numpy, one copy each."""
-    return {k: v.cpu().numpy() for k, v in planes.items()}
+class _Pull:
+    """Device planes on their way to the host. Every plane's copy is queued
+    at once (non-blocking, into pinned buffers of its own, so a pending
+    pull is never overwritten) on the current stream, behind the work that
+    makes it, and one event marks their end; `wait()` syncs on that event
+    only and returns numpy arrays. On the CPU the planes are read as they
+    are."""
+
+    def __init__(self, planes: dict):
+        self._host, self._event = planes, None
+        dev = next(iter(planes.values())).device
+        if dev.type == "cuda":
+            self._host = {}
+            for k, v in planes.items():
+                self._host[k] = torch.empty(v.shape, dtype=v.dtype,
+                                            pin_memory=True)
+                self._host[k].copy_(v, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(dev))
+
+    def wait(self) -> dict:
+        if self._event is not None:
+            self._event.synchronize()
+        return {k: v.numpy() for k, v in self._host.items()}
+
+
+def _fetch(t: torch.Tensor) -> np.ndarray:
+    """One device plane -> numpy, waiting for it."""
+    return _Pull({"t": t}).wait()["t"]
+
+
+def _rows(a: np.ndarray) -> list:
+    """A batched plane's rows, each (1, ...)."""
+    return [a[i:i + 1] for i in range(a.shape[0])]
+
+
+def _pool(n: int):
+    """A thread pool for the rANS work of n streams; none for one."""
+    if n == 1:
+        return contextlib.nullcontext()
+    return ThreadPoolExecutor(min(n, MAX_RANS_THREADS))
+
+
+def _map(pool, fn, items) -> list:
+    return [fn(v) for v in items] if pool is None else list(
+        pool.map(fn, items))
+
+
+def _decoders(streams) -> list:
+    coders = [EntropyCoder() for _ in streams]
+    for coder, stream in zip(coders, streams):
+        coder.set_stream(stream)
+    return coders
+
+
+def run_sessions(fns, device, warmup=None) -> tuple:
+    """Run each callable in fns at once, each on its own thread and, on the
+    card, its own CUDA stream, ordered after the default stream's work (the
+    inputs') and synchronized at its end. `warmup()`, if given, first runs
+    in every session's thread: PyTorch keeps cuDNN's execution plans per
+    thread, so a new thread's first convs build them again. The clock
+    starts once every session has warmed up. Returns (seconds from then to
+    the last finish, the results in order)."""
+    device = torch.device(device)
+    start = threading.Barrier(len(fns) + 1)
+
+    def session(fn):
+        with torch.no_grad(), contextlib.ExitStack() as stack:
+            stream = None
+            if device.type == "cuda":
+                stream = torch.cuda.Stream(device)
+                stream.wait_stream(torch.cuda.default_stream(device))
+                stack.enter_context(torch.cuda.stream(stream))
+            try:
+                if warmup is not None:
+                    warmup()
+                if stream is not None:
+                    stream.synchronize()
+            except BaseException:
+                start.abort()
+                raise
+            start.wait()
+            out = fn()
+            if stream is not None:
+                stream.synchronize()
+            return out
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    with ThreadPoolExecutor(max_workers=len(fns)) as pool:
+        futures = [pool.submit(session, fn) for fn in fns]
+        try:
+            start.wait()
+        except threading.BrokenBarrierError:
+            for f in futures:  # raise the warm-up's own error
+                e = f.exception()
+                if not (e is None or isinstance(e, threading.BrokenBarrierError)):
+                    raise e from None
+            raise
+        t0 = time.perf_counter()
+        results = [f.result() for f in futures]
+        return time.perf_counter() - t0, results
 
 
 class _Engine:
@@ -68,6 +196,17 @@ class _Engine:
         self.gaussian = GaussianCoder(distribution)
         self.y_table = None
         self.z_table = None
+        # derive the cached k-major weights now, so that concurrent
+        # sessions only read the model
+        for m in self.model.modules():
+            if isinstance(m, SubpelConv):
+                m.kmajor_weights()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _check_tables(self):
+        if self.z_table is None:
+            raise RuntimeError("call update() first")
 
     def _sym_in(self, sym: torch.Tensor) -> torch.Tensor:
         """A symbol plane as a stage input: parameter dtype, dense NHWC."""
@@ -77,11 +216,11 @@ class _Engine:
         return self.gaussian.build_indexes(scales).to(torch.uint8)
 
     def _up(self, symbols) -> torch.Tensor:
-        return torch.from_numpy(
-            np.ascontiguousarray(symbols, dtype=np.int16)).to(self.device)
+        return to_device(torch.from_numpy(
+            np.ascontiguousarray(symbols, dtype=np.int16)), self.device)
 
     def _frame(self, x) -> torch.Tensor:
-        x = torch.as_tensor(x, device=self.device)
+        x = to_device(torch.as_tensor(x), self.device)
         return x.to(self.param_dtype).contiguous()
 
     def _sym0(self, y, means, q_step):
@@ -89,6 +228,22 @@ class _Engine:
 
     def _sym1(self, y, means_0, means_1, q_step):
         return _i16(cm.encode_symbols_step1(y, means_0, means_1, q_step))
+
+    @staticmethod
+    def _read(pool, coders, indexes, table) -> np.ndarray:
+        """One plane of every stream: coders[i] decodes with indexes[i].
+        Returns the symbols stacked along N, as int16."""
+        planes = _map(pool, lambda ci: np.asarray(
+            ci[0].decode_stream(ci[1], table), np.int16),
+            list(zip(coders, indexes)))
+        return planes[0] if len(planes) == 1 else np.concatenate(planes)
+
+    def _encode_rows(self, planes: dict) -> list:
+        """Host symbol planes (N rows) -> N rANS streams, one per row."""
+        n = next(iter(planes.values())).shape[0]
+        rows = [{k: v[i:i + 1] for k, v in planes.items()} for i in range(n)]
+        with _pool(n) as pool:
+            return _map(pool, self._encode_host, rows)
 
 
 class VideoCodec(_Engine):
@@ -145,7 +300,8 @@ class VideoCodec(_Engine):
     # --------------------------------------------------------------- compress
     def _compress_planes(self, x, dpb, mv_y_q_scale, y_q_scale, is_first_p):
         """The encode chain: the decoder's stages interleaved with the
-        encoder-only analysis and symbol quantization."""
+        encoder-only analysis and symbol quantization. All on the device:
+        nothing here waits for it."""
         m = self.model
         x = self._frame(x)
         mv_y, mv_z_hat = m.encode_front(x, dpb, mv_y_q_scale)
@@ -172,9 +328,14 @@ class VideoCodec(_Engine):
             "dpb": out6["dpb"],
         }
 
-    def _host_encode(self, out) -> bytes:
-        """One frame's symbol planes -> its rANS stream (fresh coder)."""
-        h = _host({k: v for k, v in out.items() if k != "dpb"})
+    @staticmethod
+    def _pull(out) -> _Pull:
+        """Queue one frame's ten planes to the host (JAX: one device_get)."""
+        return _Pull({k: v for k, v in out.items() if k != "dpb"})
+
+    def _encode_host(self, h) -> bytes:
+        """One frame's host symbol planes -> its rANS stream (a fresh coder
+        per call, so concurrent calls share no encoder state)."""
         coder = EntropyCoder()
         coder.reset_encoder()
         coder.encode_with_indexes(
@@ -192,43 +353,82 @@ class VideoCodec(_Engine):
 
     @torch.no_grad()
     def compress(self, x, dpb, mv_y_q_scale, y_q_scale, is_first_p=False):
-        if self.z_table is None:
-            raise RuntimeError("call update() first")
+        self._check_tables()
         out = self._compress_planes(x, dpb, mv_y_q_scale, y_q_scale,
                                     is_first_p)
-        return {"bit_stream": self._host_encode(out), "dpb": out["dpb"]}
+        return {"bit_stream": self._encode_host(self._pull(out).wait()),
+                "dpb": out["dpb"]}
+
+    @torch.no_grad()
+    def compress_batch(self, x, dpb, mv_y_q_scale, y_q_scale,
+                       is_first_p=False):
+        """Compress N independent streams (rate points or sequences) in one
+        batched device pass: x and the DPB have a leading N, the q scales
+        are floats or (N, 1, 1, 1) arrays. Each row becomes its own rANS
+        stream, byte-identical to compress() of that row alone.
+
+        Returns {"bit_streams": [bytes] * N, "dpb": batched dpb}."""
+        self._check_tables()
+        out = self._compress_planes(x, dpb, mv_y_q_scale, y_q_scale,
+                                    is_first_p)
+        return {"bit_streams": self._encode_rows(self._pull(out).wait()),
+                "dpb": out["dpb"]}
 
     @torch.no_grad()
     def encode_gop(self, frames, dpb, mv_y_q_scale, y_q_scale,
                    is_first_p=True):
         """Encode a burst of P-frames, each off the previous frame's
-        decoder-exact DPB. Returns (list of streams, final dpb)."""
-        if self.z_table is None:
-            raise RuntimeError("call update() first")
-        streams = []
+        decoder-exact DPB, one frame kept pending: frame t's pull is queued
+        behind its chain, frame t+1's chain is dispatched, and only then
+        does the host wait for frame t's planes and rANS-encode them, while
+        the device runs frame t+1. Streams are byte-identical to
+        sequential compress() calls. Returns (list of streams, final
+        dpb)."""
+        self._check_tables()
+        streams, pending = [], None
         for i, x in enumerate(frames):
             out = self._compress_planes(x, dpb, mv_y_q_scale, y_q_scale,
                                         is_first_p and i == 0)
             dpb = out["dpb"]
-            streams.append(self._host_encode(out))
+            pull = self._pull(out)
+            if pending is not None:
+                streams.append(self._encode_host(pending.wait()))
+            pending = pull
+        if pending is not None:
+            streams.append(self._encode_host(pending.wait()))
         return streams, dpb
 
     # ------------------------------------------------------------- decompress
-    def _decode_one(self, coder, z_idx, dpb, mv_y_q_scale, y_q_scale,
-                    is_first_p):
-        mv_z_hat = coder.decode_stream(z_idx, self.z_mv_table)
+    def _decode_frame(self, pool, coders, mv_z_hat, dpb, mv_y_q_scale,
+                      y_q_scale, is_first_p, z_idx, during_stage1=None):
+        """One frame of every stream in lockstep: the device stages
+        interleaved with the host rANS reads. `mv_z_hat` is the leading
+        plane, already host-decoded (its indexes are static);
+        `during_stage1()` runs on the host while stage 1 computes. Returns
+        the stage-6 output plus "symbols", the six decoded planes."""
+        static = [z_idx] * len(coders)
+
+        def read(indexes, table):
+            return self._read(pool, coders, indexes, table)
+
         idx0, carry = self._stage1(self._up(mv_z_hat), dpb)
-        mv_y_q_r_0 = coder.decode_stream(idx0.cpu().numpy(), self.y_table)
+        pull = _Pull({"idx": idx0})
+        if during_stage1 is not None:
+            during_stage1()
+        mv_y_q_r_0 = read(_rows(pull.wait()["idx"]), self.y_table)
         idx1, carry = self._stage2(self._up(mv_y_q_r_0), carry)
-        mv_y_q_r_1 = coder.decode_stream(idx1.cpu().numpy(), self.y_table)
-        z_hat = coder.decode_stream(z_idx, self.z_table)
+        mv_y_q_r_1 = read(_rows(_fetch(idx1)), self.y_table)
         contexts = self._stage3a(self._up(mv_y_q_r_1), carry, dpb,
                                  mv_y_q_scale, is_first_p)
+        z_hat = read(static, self.z_table)  # while stage 3a runs
         idx_y0, carry = self._stage3b(self._up(z_hat), contexts[2], dpb)
-        y_q_r_0 = coder.decode_stream(idx_y0.cpu().numpy(), self.y_table)
+        y_q_r_0 = read(_rows(_fetch(idx_y0)), self.y_table)
         idx_y1, carry = self._stage5(self._up(y_q_r_0), carry)
-        y_q_r_1 = coder.decode_stream(idx_y1.cpu().numpy(), self.y_table)
-        return self._stage6(self._up(y_q_r_1), carry, contexts, y_q_scale)
+        y_q_r_1 = read(_rows(_fetch(idx_y1)), self.y_table)
+        out = self._stage6(self._up(y_q_r_1), carry, contexts, y_q_scale)
+        out["symbols"] = (mv_z_hat, mv_y_q_r_0, mv_y_q_r_1, z_hat, y_q_r_0,
+                          y_q_r_1)
+        return out
 
     def _z_idx(self, height, width):
         zh, zw = bs.get_downsampled_shape(height, width, 64)
@@ -236,28 +436,60 @@ class VideoCodec(_Engine):
 
     @torch.no_grad()
     def decompress(self, dpb, stream: bytes, height: int, width: int,
-                   mv_y_q_scale, y_q_scale, is_first_p=False):
-        if self.z_table is None:
-            raise RuntimeError("call update() first")
-        coder = EntropyCoder()
-        coder.set_stream(stream)
-        return self._decode_one(coder, self._z_idx(height, width), dpb,
-                                mv_y_q_scale, y_q_scale, is_first_p)
+                   mv_y_q_scale, y_q_scale, is_first_p=False,
+                   return_symbols=False):
+        """Decode one frame's stream. With `return_symbols`, out["symbols"]
+        holds the six decoded planes (mv_z, mv_y0, mv_y1, z, y0, y1)."""
+        return self.decompress_batch(dpb, [stream], height, width,
+                                     mv_y_q_scale, y_q_scale, is_first_p,
+                                     return_symbols)
+
+    @torch.no_grad()
+    def decompress_batch(self, dpb, streams, height: int, width: int,
+                         mv_y_q_scale, y_q_scale, is_first_p=False,
+                         return_symbols=False):
+        """Decode N independent streams in lockstep through the batch axis
+        of each stage (one DPB row and one q row per stream), identical to
+        N decompress() calls; each stream has its own coder, and the N rANS
+        reads of a plane run on a thread pool."""
+        self._check_tables()
+        coders = _decoders(streams)
+        z_idx = self._z_idx(height, width)
+        with _pool(len(coders)) as pool:
+            mv_z_hat = self._read(pool, coders, [z_idx] * len(coders),
+                                  self.z_mv_table)
+            out = self._decode_frame(pool, coders, mv_z_hat, dpb,
+                                     mv_y_q_scale, y_q_scale, is_first_p,
+                                     z_idx)
+        if not return_symbols:
+            del out["symbols"]
+        return out
 
     @torch.no_grad()
     def decode_gop(self, dpb, streams, height: int, width: int,
                    mv_y_q_scale, y_q_scale, is_first_p=True):
-        """Decode a burst of per-frame streams. Returns (list of decoded
-        frames (1, H, W, 3), final dpb); only the recon is kept per frame."""
-        if self.z_table is None:
-            raise RuntimeError("call update() first")
+        """Decode a burst of per-frame streams. While frame t's stage 1
+        runs, the host decodes frame t+1's mv_z plane; the DPB stays on the
+        device and only each frame's recon is kept. Identical to
+        sequential decompress() calls. Returns (list of decoded frames
+        (1, H, W, 3) on the device, final dpb)."""
+        self._check_tables()
         z_idx = self._z_idx(height, width)
+        coders = _decoders(streams)
+        mv_z = {}
+
+        def prefetch(i):
+            if i < len(coders):
+                mv_z[i] = self._read(None, coders[i:i + 1], [z_idx],
+                                     self.z_mv_table)
+
+        prefetch(0)
         outs = []
-        for i, stream in enumerate(streams):
-            coder = EntropyCoder()
-            coder.set_stream(stream)
-            dpb = self._decode_one(coder, z_idx, dpb, mv_y_q_scale,
-                                   y_q_scale, is_first_p and i == 0)["dpb"]
+        for i in range(len(coders)):
+            dpb = self._decode_frame(
+                None, coders[i:i + 1], mv_z.pop(i), dpb, mv_y_q_scale,
+                y_q_scale, is_first_p and i == 0, z_idx,
+                during_stage1=lambda i=i: prefetch(i + 1))["dpb"]
             outs.append(dpb["ref_frame"])
         return outs, dpb
 
@@ -331,11 +563,7 @@ class IntraCodec(_Engine):
         return {"z_hat": z_hat, "y_q_w_0": y_w0, "idx_w_0": idx0,
                 "y_q_w_1": y_w1, "idx_w_1": idx1}
 
-    @torch.no_grad()
-    def compress(self, x, q_scale) -> bytes:
-        if self.z_table is None:
-            raise RuntimeError("call update() first")
-        h = _host(self._compress_planes(x, q_scale))
+    def _encode_host(self, h) -> bytes:
         coder = EntropyCoder()
         coder.reset_encoder()
         coder.encode_with_indexes(h["z_hat"], be.build_indexes(
@@ -345,19 +573,42 @@ class IntraCodec(_Engine):
         return coder.flush_encoder()
 
     @torch.no_grad()
+    def compress(self, x, q_scale) -> bytes:
+        self._check_tables()
+        return self._encode_host(
+            _Pull(self._compress_planes(x, q_scale)).wait())
+
+    @torch.no_grad()
+    def compress_batch(self, x, q_scale) -> list:
+        """N rows in one batched device pass (q: a float or (N, 1, 1, 1));
+        one rANS stream per row, byte-identical to compress() of each row
+        alone."""
+        self._check_tables()
+        return self._encode_rows(
+            _Pull(self._compress_planes(x, q_scale)).wait())
+
+    @torch.no_grad()
     def decompress(self, stream: bytes, height: int, width: int, q_scale):
         """Returns the decoded frame (1, H, W, 3), NHWC, on the device."""
-        if self.z_table is None:
-            raise RuntimeError("call update() first")
+        return self.decompress_batch([stream], height, width, q_scale)
+
+    @torch.no_grad()
+    def decompress_batch(self, streams, height: int, width: int, q_scale):
+        """Decode N streams in lockstep through batched stages; returns the
+        decoded frames (N, H, W, 3), identical to N decompress() calls."""
+        self._check_tables()
+        coders = _decoders(streams)
         zh, zw = bs.get_downsampled_shape(height, width, 64)
         z_idx = be.build_indexes((1, zh, zw, self.model.N))
-        coder = EntropyCoder()
-        coder.set_stream(stream)
-        z_hat = coder.decode_stream(z_idx, self.z_table)
-        idx0, carry = self._stage1(self._up(z_hat), q_scale)
-        y_q_r_0 = coder.decode_stream(idx0.cpu().numpy(), self.y_table)
-        idx1, carry = self._stage2(self._up(y_q_r_0), carry)
-        y_q_r_1 = coder.decode_stream(idx1.cpu().numpy(), self.y_table)
+        with _pool(len(coders)) as pool:
+            z_hat = self._read(pool, coders, [z_idx] * len(coders),
+                               self.z_table)
+            idx0, carry = self._stage1(self._up(z_hat), q_scale)
+            y_q_r_0 = self._read(pool, coders, _rows(_fetch(idx0)),
+                                 self.y_table)
+            idx1, carry = self._stage2(self._up(y_q_r_0), carry)
+            y_q_r_1 = self._read(pool, coders, _rows(_fetch(idx1)),
+                                 self.y_table)
         return self._stage3(self._up(y_q_r_1), carry, q_scale)
 
     def encode_decode(self, x, q_scale, output_path=None, pic_width=None,

@@ -56,10 +56,12 @@ class GaussianCoder:
         max(s, 1e-5), log, minus and over the table's f32 constants, clip,
         truncate, all in the scales' dtype: bf16 scales index in bf16, the
         constants rounded to bf16, as JAX's weak-typed floats are."""
-        lmin = torch.tensor(np.float32(self.log_scale_min),
-                            device=scales.device).to(scales.dtype)
-        step = torch.tensor(np.float32(self.log_scale_step),
-                            device=scales.device).to(scales.dtype)
+        def const(v):  # made on the device: no host wait
+            return torch.full((), float(np.float32(v)), dtype=torch.float32,
+                              device=scales.device).to(scales.dtype)
+
+        lmin = const(self.log_scale_min)
+        step = const(self.log_scale_step)
         scales = torch.clamp_min(scales, 1e-5)
         indexes = (torch.log(scales) - lmin) / step
         return torch.clamp(indexes, 0, self.levels - 1).to(torch.int32)

@@ -28,7 +28,7 @@ from ..ops.math import laplace_bits, lower_bound, probs_to_bits
 from ..ops.resize import bilinear_down2
 from ..ops.warp import flow_warp, flow_warp_packed
 from ..ops.warp_twopass import flow_warp_twopass
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, to_device
 from . import common
 from .video_net import (ContextualDecoder, ContextualEncoder, FeatureExtractor,
                         MESpynet, MultiScaleContextFusion, ReconGeneration)
@@ -57,8 +57,12 @@ def _prior_stack(cin, c1, c2, c3, slope=0.2):
 
 
 def _q(q, like: torch.Tensor) -> torch.Tensor:
-    """A q-scale (float, array or tensor) as a tensor beside `like`."""
-    return torch.as_tensor(q, dtype=like.dtype, device=like.device)
+    """A q-scale as a tensor in `like`'s dtype, on its device, made without
+    a host wait: a float, or an (N, 1, 1, 1) array or tensor with one row
+    per stream of a batch."""
+    if isinstance(q, (int, float)):
+        return torch.full((), q, dtype=like.dtype, device=like.device)
+    return to_device(torch.as_tensor(q, dtype=like.dtype), like.device)
 
 
 class DMC(nn.Module):

@@ -7,9 +7,10 @@ tensor calls `launcher()`, which builds every missing library at once (one
 `nvcc` process per source, all started together) into `csrc/build/`.
 Library names carry a hash of their source, so an edited kernel rebuilds.
 
-Each kernel wrapper keeps its count of launches in `LAUNCHES`; a run resets
-the counts with `reset_launches()` and reads them afterwards to show which
-kernels its path went through.
+Each kernel wrapper adds one to its count in `LAUNCHES` where it launches
+(`count_launch`, under a lock: sessions on several threads launch at
+once); a run resets the counts with `reset_launches()` and reads them
+afterwards to show which kernels its path went through.
 """
 
 from __future__ import annotations
@@ -43,12 +44,19 @@ SIGNATURES = {
 
 _libs: dict = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 build_log: dict = {}  # source name -> nvcc's output (ptxas register report)
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:

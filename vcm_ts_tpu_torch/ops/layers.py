@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .rowwise import conv2d, linear, mean_hw
 from .resize import max_pool2
 from .subpel import (permute_out_channels, pixel_shuffle_relayout,
                      subpel_conv1x1)
@@ -42,7 +43,7 @@ class Conv2d(nn.Conv2d):
         dt = torch.promote_types(x.dtype, self.weight.dtype)
         w = self.weight.to(dt)
         b = None if self.bias is None else self.bias.to(dt)
-        return self._conv_forward(x.to(dt), w, b)
+        return conv2d(x.to(dt), w, b, self.stride, self.padding)
 
 
 class Linear(nn.Linear):
@@ -51,7 +52,7 @@ class Linear(nn.Linear):
     def forward(self, x):
         dt = torch.promote_types(x.dtype, self.weight.dtype)
         b = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+        return linear(x.to(dt), self.weight.to(dt), b)
 
 
 def conv(cin: int, cout: int, kernel: int = 3, stride: int = 1) -> Conv2d:
@@ -76,7 +77,8 @@ class SubpelConv(nn.Module):
         self.add_module("0", conv(cin, features * r * r, kernel))
         self._kmajor = None
 
-    def _weights(self):
+    def kmajor_weights(self):
+        """(k-major weights, bias), derived once per load and cached."""
         c = self._modules["0"]
         key = (c.weight.data_ptr(), c.weight._version, c.bias.data_ptr(),
                c.bias._version, c.weight.dtype)
@@ -96,14 +98,14 @@ class SubpelConv(nn.Module):
         return self._kmajor[1], self._kmajor[2]
 
     def forward(self, x):
-        w, b = self._weights()
+        w, b = self.kmajor_weights()
         # promote like the JAX package (f32 params + bf16 input -> f32)
         dt = torch.promote_types(x.dtype, w.dtype)
         x = x.to(dt).contiguous(memory_format=torch.channels_last)
         w, b = w.to(dt), b.to(dt)
         if self.kernel == 1:
             return subpel_conv1x1(x, w, b, self.r)
-        y = F.conv2d(x, w, b, padding=self.kernel // 2)
+        y = conv2d(x, w, b, padding=self.kernel // 2)
         return pixel_shuffle_relayout(
             y.contiguous(memory_format=torch.channels_last), self.r)
 
@@ -190,7 +192,7 @@ class SELayer(nn.Module):
             Linear(ch // reduction, ch, bias=False), nn.Sigmoid())
 
     def forward(self, x):
-        y = x.mean(dim=(2, 3), dtype=torch.float32).to(x.dtype)
+        y = mean_hw(x).to(x.dtype)
         return x * self.fc(y)[:, :, None, None]
 
 

@@ -19,9 +19,9 @@ kernels are still to be ported with the training slice.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from . import cuda_build
+from .rowwise import conv2d
 from .warp import nhwc_dense
 
 
@@ -43,10 +43,11 @@ def relayout_plain(x: torch.Tensor, r: int) -> torch.Tensor:
 
 
 def subpel_conv1x1_plain(x, w_kmajor, b_kmajor, r: int):
-    """Plain version of kernel B: a 1x1 F.conv2d, then the shuffle."""
+    """Plain version of kernel B: a 1x1 conv (ops/rowwise.py), then the
+    shuffle."""
     rr, cin, c = w_kmajor.shape
     w = w_kmajor.permute(0, 2, 1).reshape(rr * c, cin, 1, 1)
-    return relayout_plain(F.conv2d(x, w, b_kmajor.reshape(rr * c)), r)
+    return relayout_plain(conv2d(x, w, b_kmajor.reshape(rr * c)), r)
 
 
 def _out_like(x, c, r):
@@ -67,7 +68,7 @@ def relayout_cuda(x: torch.Tensor, r: int) -> torch.Tensor:
         x.data_ptr(), out.data_ptr(), n, h, w, c, r, x.element_size(),
         cuda_build.stream_ptr(x))
     cuda_build.check(rc, "pixel_shuffle_relayout")
-    cuda_build.LAUNCHES["pixel_shuffle_relayout"] += 1
+    cuda_build.count_launch("pixel_shuffle_relayout")
     return out
 
 
@@ -91,7 +92,7 @@ def subpel_conv1x1_cuda(x, w_kmajor, b_kmajor, r: int):
         x.data_ptr(), w_kmajor.data_ptr(), b_kmajor.data_ptr(), out.data_ptr(),
         n, h, w, cin, c, r, code, cuda_build.stream_ptr(x))
     cuda_build.check(rc, "subpel_conv1x1")
-    cuda_build.LAUNCHES["subpel_conv1x1"] += 1
+    cuda_build.count_launch("subpel_conv1x1")
     return out
 
 

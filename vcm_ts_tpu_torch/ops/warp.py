@@ -97,7 +97,7 @@ def warp_cuda(ims, flow):
                                      cuda_build.dtype_code(flow),
                                      cuda_build.stream_ptr(flow))
     cuda_build.check(rc, "warp")
-    cuda_build.LAUNCHES["warp"] += 1
+    cuda_build.count_launch("warp")
     return outs
 
 

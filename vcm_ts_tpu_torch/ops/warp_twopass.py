@@ -87,7 +87,7 @@ def warp_twopass_cuda(im, flow, max_disp: int):
         im.data_ptr(), out.data_ptr(), c, flow32.data_ptr(), n, h, w,
         max_disp, code, cuda_build.stream_ptr(flow32))
     cuda_build.check(rc, "warp_twopass")
-    cuda_build.LAUNCHES["warp_twopass"] += 1
+    cuda_build.count_launch("warp_twopass")
     return out
 
 

@@ -16,6 +16,17 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """A tensor onto `device` without a host wait: a CPU tensor bound for
+    the card goes through pinned memory and is queued on the current
+    stream behind the work already there (a blocking copy would wait for
+    that work)."""
+    device = torch.device(device)
+    if device.type == "cuda" and t.device.type == "cpu":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
 def set_codec_numerics() -> None:
     """f32 without TF32, and cuDNN algorithms fixed per shape.
 
