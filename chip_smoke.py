@@ -1,4 +1,5 @@
-"""Smoke run of the PyTorch/CUDA port on one GPU: kernels, bench, GOPs, serving.
+"""Smoke run of the PyTorch/CUDA port on one GPU: kernels, bench, GOPs,
+serving, the VCM pipeline.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -35,7 +36,20 @@ result line):
    --pipelined-encode / --pipelined-decode (1 and 2 sessions) in bf16;
    encode_gop / decode_gop of 4 bf16 fast_warp P-frames beside a loop of
    compress / decompress calls (wall, device-busy, idle share). Every
-   line names the card and its power limit.
+   line names the card and its power limit;
+7. the VCM pipeline (vcm_ts_tpu_torch/codec/vcm_pipeline.py) at
+   1088x1920: 3 frames composited from the committed plate and face
+   sprites, written with the port's PNG codec, then the base layer (I + 2
+   P, f32, exact warp, .bin files), plate and face detection with the
+   shipped pretrained/ weights, residuals, the learned enhancement layer,
+   fusion and the PSNR report; cold, warm (launches counted, peak memory)
+   and warm under the profiler. Gates: every .bin decodes to the
+   encoder's recon, each frame has a plate and a face at IoU >= 0.5 to a
+   composited box, OCR exact-match >= 0.6 on the source crops, kernels A,
+   B and C launched, the fused frames equal base + mask x residual
+   recomputed from the files. Then each IntraNoAR conv alone at its
+   1088x1920 shape: those whose cuDNN algorithm launches 100 kernels or
+   more.
 
 The last three lines of standard output are the `kernels` JSON object, the
 nvidia-smi line, and then {"ok": true, "device": {...}}. A longer record
@@ -48,10 +62,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -523,23 +539,25 @@ def run_gop(intra, dmc, out_dir, tag, expect):
 
 
 def profile_ms(fn):
-    """fn() under torch.profiler: wall ms, device-busy ms (the sum of
-    kernel times), the idle share, the kernels that take the most device
-    time and the port's kernels' sums."""
+    """fn() under torch.profiler (device activity): wall ms, device-busy ms
+    (the sum of kernel and copy times), the idle share, the launches, the
+    kernels that take the most device time and the port's kernels' sums.
+    Summed from the raw trace events: building torch's Python event list
+    took minutes for the VCM phase's ~800 000 launches."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.device_time / 1e3, n + 1)
+    cuda = torch.autograd.DeviceType.CUDA
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            ms, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
     busy = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     ours = {}
@@ -551,7 +569,8 @@ def profile_ms(fn):
             ours[f] = (t + ms, c + n)
     return {"wall_ms": wall, "device_busy_ms": busy,
             "idle_share": 1.0 - busy / wall,
-            "top_kernels": [{"name": k[:90], "ms": v[0], "launches": v[1]}
+            "launches": sum(n for _, n in by_name.values()),
+            "top_kernels": [{"name": k[:160], "ms": v[0], "launches": v[1]}
                             for k, v in top],
             "port_kernels": {k: {"ms": v[0], "launches": v[1]}
                              for k, v in sorted(ours.items())}}
@@ -848,6 +867,483 @@ def run_serving(intra, dmc, intra16, dmc16, smi):
     return rec
 
 
+
+# ------------------------------------------------------------------ phase 7
+SPRITES = os.path.join(ROOT, "vcm_ts_tpu_torch", "eval", "data",
+                       "smoke_sprites.npz")
+# plate widths and face size at 1920 wide: 6x the sizes that
+# tests/test_vcm_e2e_learned.py composites at 256x192 (a 90 px plate, a 56 px
+# face), so that after the detector's letterbox to 320 they are as large as
+# in its training; top-left corners at 1088x1920
+PLATE_W = (420, 540, 480, 360)
+PLATE_XY = ((120, 150), (1250, 120), (200, 760), (1300, 820))
+FACE_S = 336
+FACE_XY = ((800, 150), (800, 640))
+VCM_FRAMES, VCM_GOP, VCM_SHIFT = 3, 3, 4
+Q_ANCHORS = (1.2, 0.9, 0.7, 0.5)  # the rate anchors written into the .pth
+VCM_SETTINGS = dict(rate_count=4, quality=1, lp_prob=0.5, lp_pad=2,
+                    fc_prob=0.7, fc_pad=2, enh_quality=3)
+
+
+def compose_frames(n, h, w, seed=0):
+    """n RGB uint8 frames: a seeded background with the committed plate and
+    face sprites (vcm_ts_tpu_torch/eval/data/smoke_sprites.npz, rendered by
+    tools/train_plate_ocr.render_plate and tools/train_face_detector
+    .render_face) pasted with numpy, moving VCM_SHIFT pixels right per
+    frame; sizes and places scale with w / 1920. Returns (frames, plate
+    boxes, face boxes, plate texts)."""
+    from vcm_ts_tpu_torch.ops.cv_resize import resize_linear_u8
+
+    sp = dict(np.load(SPRITES))
+    s = w / 1920
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0, 1, h)[:, None, None]
+    bg = (rng.integers(60, 200, 3) * (1 - t) + rng.integers(30, 140, 3) * t
+          ) * np.ones((1, w, 1))
+    for _ in range(8):
+        x, y = rng.integers(0, w - w // 6), rng.integers(0, h - h // 5)
+        bw, bh = rng.integers(w // 19, w // 4), rng.integers(h // 18, h // 4)
+        bg[y:y + bh, x:x + bw] = rng.integers(20, 230, 3)
+    bg += rng.normal(0, 4, bg.shape)
+    plates = []
+    for i, pw in enumerate(PLATE_W):
+        p = sp[f"plate{i}"]
+        pw = round(pw * s)
+        ph = round(p.shape[0] * pw / p.shape[1])
+        plates.append(resize_linear_u8(torch.from_numpy(p[:, :, None]), ph,
+                                       pw).numpy())
+    fs = round(FACE_S * s)
+    faces = [resize_linear_u8(torch.from_numpy(sp[f"face{i}"]), fs,
+                              fs).numpy().astype(np.float64)
+             for i in range(2)]
+    frames, lp_boxes, fc_boxes = [], [], []
+    for k in range(n):
+        img = bg.copy()
+        lp, fc = [], []
+        for (x, y), p in zip(PLATE_XY, plates):
+            x, y = round(x * s) + VCM_SHIFT * k, round(y * s)
+            img[y:y + p.shape[0], x:x + p.shape[1]] = p
+            lp.append([x, y, x + p.shape[1], y + p.shape[0]])
+        for (x, y), f in zip(FACE_XY, faces):
+            x, y = round(x * s) + VCM_SHIFT * k, round(y * s)
+            a = f[:, :, 3:] / 255.0
+            img[y:y + fs, x:x + fs] = (img[y:y + fs, x:x + fs] * (1 - a)
+                                       + f[:, :, :3] * a)
+            fc.append([x, y, x + fs, y + fs])
+        frames.append(img.clip(0, 255).astype(np.uint8))
+        lp_boxes.append(np.asarray(lp, np.float32))
+        fc_boxes.append(np.asarray(fc, np.float32))
+    return frames, lp_boxes, fc_boxes, [str(t) for t in sp["texts"]]
+
+
+def save_codec_pth(model, path):
+    """A port codec's weights as a reference-layout .pth, with decreasing
+    rate anchors (Q_ANCHORS) in its q-scale parameters."""
+    sd = {k: v.detach().float().cpu() for k, v in model.state_dict().items()}
+    for k in ("q_scale", "y_q_scale", "mv_y_q_scale"):
+        if k in sd:
+            sd[k] = torch.tensor(Q_ANCHORS).reshape(-1, 1, 1, 1)
+    torch.save(sd, path)
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def vcm_pipeline(root, ckpt, device):
+    """The port's VCM pipeline over root/artifacts/source_frames, stage by
+    stage (codec/vcm_pipeline.py, the flow of video_coder.py with the
+    learned enhancement layer); wall ms per stage."""
+    from vcm_ts_tpu_torch.codec import vcm_pipeline as vp
+
+    cfg = VCM_SETTINGS
+    j = os.path.join
+    stages = (
+        ("base layer", lambda: vp.encode_decode_dcvc(
+            j(root, vp.PATHS_ARTIFACTS_SOURCE_FRAMES), ckpt["i"], ckpt["p"],
+            anchor_num=4, gop=VCM_GOP, rate_count=cfg["rate_count"],
+            quality=cfg["quality"], write_stream=True,
+            out_frames_dir=j(root, vp.PATHS_ARTIFACTS_DCVC_HEM),
+            out_bins_dir=j(root, vp.PATHS_ENCODED_DIR, "dcvc_hem_bins"),
+            device=device)),
+        ("detect plates", lambda: vp.detect_rois(
+            root, "liplates", prob=cfg["lp_prob"], padding=cfg["lp_pad"],
+            device=device)),
+        ("detect faces", lambda: vp.detect_rois(
+            root, "faces", prob=cfg["fc_prob"], padding=cfg["fc_pad"],
+            device=device)),
+        ("residuals", lambda: vp.compute_residuals(
+            root, True, True, j(root, vp.PATHS_ARTIFACTS_RESIDUALS),
+            device=device)),
+        ("learned enhancement layer", lambda: vp.encode_residuals_learned(
+            root, ckpt["i"], cfg["enh_quality"],
+            j(root, vp.PATHS_ARTIFACTS_RESIDUALS_ENCODED),
+            rate_count=cfg["rate_count"], device=device)),
+        ("fuse", lambda: vp.fuse_layers(
+            root, faces_padding=cfg["fc_pad"],
+            liplates_padding=cfg["lp_pad"], device=device)),
+        ("visual metrics", lambda: vp.calc_visual_metrics(
+            root, "source_frames", liplates_padding=cfg["lp_pad"],
+            faces_padding=cfg["fc_pad"], device=device)),
+    )
+    ms, out = {}, None
+    for name, fn in stages:
+        _sync(device)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(device)
+        ms[name] = (time.perf_counter() - t0) * 1e3
+    return ms, out
+
+
+def _bins(folder):
+    return sorted(os.path.join(folder, f) for f in os.listdir(folder))
+
+
+def check_vcm_streams(root, ckpt, frames, device):
+    """Every base and enhancement .bin, read back from disk and decoded,
+    equals the encoder's recon: fresh codecs from the same .pth code the
+    same inputs into the same bytes, the decoded frames equal the
+    encoder's (the I-frame's decode, each P-frame's DPB) bit for bit, and
+    the decoded PNGs the pipeline wrote are those recons."""
+    from vcm_ts_tpu_torch.codec import bitstream as bs
+    from vcm_ts_tpu_torch.codec import vcm_pipeline as vp
+    from vcm_ts_tpu_torch.codec.engine import VideoCodec
+    from vcm_ts_tpu_torch.codec.png_io import imread
+    from vcm_ts_tpu_torch.models.dmc import make_dpb
+
+    cfg = VCM_SETTINGS
+    ic, i_sc = vp.load_intra_codec(ckpt["i"], cfg["rate_count"],
+                                   device=device)
+    dmc, y_q, mv_q = vp.load_video_model(ckpt["p"], 4, device)
+    vc = VideoCodec(dmc, device=device)
+    vc.update(force=True)
+    iq = bs.get_rounded_q(float(i_sc[cfg["quality"]]))[0]
+    yq = bs.get_rounded_q(float(vp._q_ladder(y_q, cfg["rate_count"])
+                                [cfg["quality"]]))[0]
+    mq = bs.get_rounded_q(float(vp._q_ladder(mv_q, cfg["rate_count"])
+                                [cfg["quality"]]))[0]
+
+    def png_of(x):
+        return (x[0].clamp(0, 1) * 255).round().to(torch.uint8).cpu().numpy()
+
+    h, w = frames[0].shape[:2]
+    base = _bins(os.path.join(root, vp.PATHS_ENCODED_DIR, "dcvc_hem_bins"))
+    pngs = sorted(os.listdir(os.path.join(root, vp.PATHS_ARTIFACTS_DCVC_HEM)))
+    checked = 0
+    enc_dpb = dec_dpb = None
+    for t, (path, x) in enumerate(zip(base, frames)):
+        xt = torch.from_numpy(bs.pad_image(x[None].astype(np.float32)
+                                           / 255.0)).to(device)
+        if t % VCM_GOP == 0:
+            _, _, qi, stream = bs.decode_i(path)
+            if ic.compress(xt, iq) != stream or qi != round(iq * 100):
+                raise AssertionError(f"vcm: {path} differs from the I-frame "
+                                     "coded again")
+            rec = ic.decompress(stream, h, w, qi / 100).clamp(0, 1)
+            enc_dpb = dec_dpb = make_dpb(rec)
+            dec = rec
+        else:
+            _, _, stream = bs.decode_p(path)
+            enc = vc.compress(xt, enc_dpb, mq, yq, t % VCM_GOP == 1)
+            if enc["bit_stream"] != stream:
+                raise AssertionError(f"vcm: {path} differs from the P-frame "
+                                     "coded again")
+            d = vc.decompress(dec_dpb, stream, h, w, mq, yq,
+                              t % VCM_GOP == 1)["dpb"]
+            if not torch.equal(d["ref_frame"], enc["dpb"]["ref_frame"]):
+                raise AssertionError(f"vcm: {path} decodes to another frame "
+                                     "than the encoder's DPB recon")
+            enc_dpb = dict(enc["dpb"], ref_frame=enc["dpb"]["ref_frame"]
+                           .clamp(0, 1))
+            dec_dpb = dict(d, ref_frame=d["ref_frame"].clamp(0, 1))
+            dec = dec_dpb["ref_frame"]
+        png = imread(os.path.join(root, vp.PATHS_ARTIFACTS_DCVC_HEM,
+                                  pngs[t]))
+        if not np.array_equal(png_of(dec[:, :h, :w]), png):
+            raise AssertionError(f"vcm: decoded base frame {t} != its PNG")
+        checked += 1
+    eq = bs.get_rounded_q(float(i_sc[cfg["enh_quality"]]))[0]
+    enh = _bins(os.path.join(root, vp.PATHS_ENCODED_DIR, "enhancement_bins"))
+    res_dir = os.path.join(root, vp.PATHS_ARTIFACTS_RESIDUALS)
+    dec_dir = os.path.join(root, vp.PATHS_ARTIFACTS_RESIDUALS_ENCODED)
+    for path, name in zip(enh, sorted(os.listdir(res_dir))):
+        hh, ww, qi, stream = bs.decode_i(path)
+        # coded in BGR order (encode_residuals_learned)
+        res = imread(os.path.join(res_dir, name))[:, :, ::-1].astype(
+            np.float32) / 255.0
+        xt = torch.from_numpy(bs.pad_image(res[None])).to(device)
+        if ic.compress(xt, eq) != stream:
+            raise AssertionError(f"vcm: {path} differs from the residual "
+                                 "coded again")
+        rec = ic.decompress(stream, hh, ww, qi / 100)[:, :hh, :ww].flip(-1)
+        if not np.array_equal(png_of(rec), imread(os.path.join(dec_dir,
+                                                               name))):
+            raise AssertionError(f"vcm: {path} decodes to another residual "
+                                 "than the pipeline wrote")
+        checked += 1
+    if checked != 2 * len(frames):
+        raise AssertionError(f"vcm: {checked} streams for {len(frames)} "
+                             "frames")
+    return checked
+
+
+def check_vcm_fusion(root, pads):
+    """Each fused frame equals base + mask x (residual - 128), clipped and
+    truncated, recomputed in numpy from the files (the JAX package's
+    arithmetic, create_gradient_mask)."""
+    import pickle
+
+    from vcm_ts_tpu_torch.codec import vcm_pipeline as vp
+    from vcm_ts_tpu_torch.codec.png_io import imread
+
+    j = os.path.join
+    names = sorted(os.listdir(j(root, vp.PATHS_ARTIFACTS_RESULT)))
+    for i, name in enumerate(names):
+        b = imread(j(root, vp.PATHS_ARTIFACTS_DCVC_HEM, name)).astype(
+            np.float32)
+        e = imread(j(root, vp.PATHS_ARTIFACTS_RESIDUALS_ENCODED, name)
+                   ).astype(np.float32) - 128
+        h, w, _ = b.shape
+        mask = np.zeros((h, w, 1), np.float32)
+        for kind in ("liplates", "faces"):
+            files = sorted(os.listdir(j(root, vp.PATHS_ENCODED_DIR,
+                                        f"{kind}_coords")))
+            with open(j(root, vp.PATHS_ENCODED_DIR, f"{kind}_coords",
+                        files[i]), "rb") as f:
+                for x1, y1, x2, y2 in pickle.load(f).reshape(-1, 4):
+                    mask[y1:y2, x1:x2] = vp.create_gradient_mask(
+                        w=x2 - x1, h=y2 - y1, border_size=pads[kind])
+        want = np.clip(b + mask * e, 0, 255).astype(np.uint8)
+        if not np.array_equal(imread(j(root, vp.PATHS_ARTIFACTS_RESULT,
+                                       name)), want):
+            raise AssertionError(f"vcm: fused frame {name} != base + mask x "
+                                 "residual")
+    return len(names)
+
+
+def _iou_hits(root, gts, folder_kind):
+    """Per frame: how many composited boxes have a pipeline box at
+    IoU >= 0.5 (the pickled coords, padding included)."""
+    import pickle
+
+    from vcm_ts_tpu_torch.codec import vcm_pipeline as vp
+    from vcm_ts_tpu_torch.eval.detection_metrics import box_iou
+
+    folder = os.path.join(root, vp.PATHS_ENCODED_DIR, f"{folder_kind}_coords")
+    hits, ious = [], []
+    for f, gt in zip(sorted(os.listdir(folder)), gts):
+        with open(os.path.join(folder, f), "rb") as fh:
+            boxes = pickle.load(fh).reshape(-1, 4).astype(np.float64)
+        iou = box_iou(gt.astype(np.float64), boxes)
+        best = iou.max(1) if iou.size else np.zeros(len(gt))
+        hits.append(int((best >= 0.5).sum()))
+        ious.append([round(float(v), 3) for v in best])
+    return hits, ious
+
+
+def intra_conv_launches():
+    """Each conv of the IntraNoAR (seeded damped) at the shape a 1088x1920
+    I-frame coded and decoded gives it, run alone under the profiler: the
+    convs whose cuDNN algorithm launches 100 kernels or more, with their
+    device ms and their most frequent kernel."""
+    from vcm_ts_tpu_torch.codec.engine import IntraCodec
+    from vcm_ts_tpu_torch.utils.weights import make_intra
+
+    ic = IntraCodec(make_intra("cuda"), device="cuda")
+    ic.update()
+    seen = {}
+    names = {m: n for n, m in ic.model.named_modules()}
+
+    def record(m, inputs, _):  # returns None: the output is kept
+        seen.setdefault((names[m], tuple(inputs[0].shape)), (m, inputs[0]))
+
+    hooks = [m.register_forward_hook(record) for m in ic.model.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    x = torch.rand((1, H, W, 3), device="cuda")
+    ic.decompress(ic.compress(x, IQ), H, W, IQ)
+    for hk in hooks:
+        hk.remove()
+    rows = []
+    with torch.no_grad():
+        for (name, shape), (m, x_in) in seen.items():
+            x_in = x_in.clone()
+            p = profile_ms(lambda: m(x_in))
+            n = p["launches"]
+            if n >= 100:
+                top = p["top_kernels"][0]
+                rows.append({"conv": name, "input": list(shape),
+                             "device_ms": p["device_busy_ms"],
+                             "launches": n, "top_kernel": top["name"][:90],
+                             "top_launches": top["launches"]})
+    return rows
+
+
+def run_vcm(out_dir, smi):
+    """Phase 7: the VCM pipeline at 1088x1920 on the card (cold, then warm
+    with launches counted, then warm under the profiler), with its gates."""
+    from vcm_ts_tpu_torch.codec import vcm_pipeline as vp
+    from vcm_ts_tpu_torch.codec.png_io import imread, read_png, write_png
+    from vcm_ts_tpu_torch.eval.detection_metrics import MeanAveragePrecision
+    from vcm_ts_tpu_torch.eval.ocr_native import PlateOCRNative
+    from vcm_ts_tpu_torch.eval.yolo_native import YOLOv8NativeDetector
+    from vcm_ts_tpu_torch.ops import cuda_build
+    from vcm_ts_tpu_torch.utils.weights import make_dmc, make_intra
+
+    device = "cuda"
+    root = os.path.join(out_dir, "vcm")
+    shutil.rmtree(root, ignore_errors=True)
+    src = os.path.join(root, vp.PATHS_ARTIFACTS_SOURCE_FRAMES)
+    os.makedirs(src)
+    frames, lp_gt, fc_gt, texts = compose_frames(VCM_FRAMES, H, W)
+    png = {}
+    t0 = time.perf_counter()
+    for i, f in enumerate(frames):
+        write_png(os.path.join(src, f"im{i + 1:05d}.png"), f)
+    png["write_ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / len(frames)
+    t0 = time.perf_counter()
+    back = imread(os.path.join(src, "im00001.png"))
+    png["read_ms_up_filter"] = (time.perf_counter() - t0) * 1e3
+    paeth = os.path.join(root, "paeth.png")
+    write_png(paeth, frames[0], filter_type=4)
+    t0 = time.perf_counter()
+    back4 = read_png(paeth)
+    png["read_ms_paeth_filter"] = (time.perf_counter() - t0) * 1e3
+    os.remove(paeth)
+    if not (np.array_equal(back, frames[0])
+            and np.array_equal(back4, frames[0])):
+        raise AssertionError("vcm: a PNG read back differs from its frame")
+
+    ckpt = {"i": os.path.join(root, "intra.pth"),
+            "p": os.path.join(root, "dmc.pth")}
+    save_codec_pth(make_intra(device), ckpt["i"])
+    save_codec_pth(make_dmc(device), ckpt["p"])
+
+    runs = {}
+    ms, _ = vcm_pipeline(root, ckpt, device)
+    runs["cold"] = ms
+    fused_cold = [imread(os.path.join(root, vp.PATHS_ARTIFACTS_RESULT, n))
+                  for n in sorted(os.listdir(os.path.join(
+                      root, vp.PATHS_ARTIFACTS_RESULT)))]
+    cuda_build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    ms, metrics = vcm_pipeline(root, ckpt, device)
+    launches = dict(cuda_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    runs["warm"] = ms
+    prof = profile_ms(lambda: vcm_pipeline(root, ckpt, device))
+    for i, n in enumerate(sorted(os.listdir(os.path.join(
+            root, vp.PATHS_ARTIFACTS_RESULT)))):
+        if not np.array_equal(fused_cold[i], imread(os.path.join(
+                root, vp.PATHS_ARTIFACTS_RESULT, n))):
+            raise AssertionError("vcm: a second run fused other frames")
+
+    n_streams = check_vcm_streams(root, ckpt, frames, device)
+    n_fused = check_vcm_fusion(root, {"liplates": VCM_SETTINGS["lp_pad"],
+                                      "faces": VCM_SETTINGS["fc_pad"]})
+    lp_hits, lp_iou = _iou_hits(root, lp_gt, "liplates")
+    fc_hits, fc_iou = _iou_hits(root, fc_gt, "faces")
+    if min(lp_hits) < 1 or min(fc_hits) < 1:
+        raise AssertionError(f"vcm: a frame without a plate or a face at "
+                             f"IoU >= 0.5: plates {lp_iou}, faces {fc_iou}")
+    missing = [k for k in ("warp", "subpel_conv1x1",
+                           "pixel_shuffle_relayout") if not launches[k]]
+    if missing:
+        raise AssertionError(f"vcm: kernels {missing} not launched: "
+                             f"{launches}")
+
+    ocr = PlateOCRNative.load(os.path.join(vp.PRETRAINED, "plate_ocr.npz"),
+                              device=device)
+    fused = sorted(os.listdir(os.path.join(root, vp.PATHS_ARTIFACTS_RESULT)))
+    exact = {"source": [], "fused": []}
+    read = {"source": [], "fused": []}
+    for i, f in enumerate(frames):
+        for kind, img in (("source", f), ("fused", imread(os.path.join(
+                root, vp.PATHS_ARTIFACTS_RESULT, fused[i])))):
+            got = ocr(torch.from_numpy(img).to(device).float() / 255.0,
+                      lp_gt[i])
+            read[kind].append(got)
+            exact[kind] += [g == t for g, t in zip(got, texts)]
+    ocr_src = float(np.mean(exact["source"]))
+    ocr_fused = float(np.mean(exact["fused"]))
+    if ocr_src < 0.6:
+        raise AssertionError(f"vcm: OCR exact-match on source crops "
+                             f"{ocr_src} < 0.6: {read['source']} vs {texts}")
+
+    det = YOLOv8NativeDetector.load(os.path.join(vp.PRETRAINED,
+                                                 "yolov8-lp.npz"),
+                                    device=device)
+    mean_ap = MeanAveragePrecision()
+    for f, gt in zip(frames, lp_gt):
+        boxes, scores, labels = det.detect(torch.from_numpy(f).to(device),
+                                           conf=0.25)
+        mean_ap.update({"boxes": boxes, "scores": scores,
+                        "labels": labels.astype(np.int64)},
+                       {"boxes": gt, "labels": np.zeros(len(gt), np.int64)})
+    map50 = mean_ap.compute()["map_50"]
+
+    j = os.path.join
+    pix = len(frames) * H * W
+    bpp = {"base": 8 * vp.get_dir_size(j(root, vp.PATHS_ENCODED_DIR,
+                                         "dcvc_hem_bins")) / pix,
+           "enhancement": vp._enhancement_layer_bits(root) / pix}
+    bpp["total"] = bpp["base"] + bpp["enhancement"]
+    # ~100 MB of PNGs and ~100 MB of weights at 1088x1920
+    shutil.rmtree(j(root, "artifacts"))
+    for path in ckpt.values():
+        os.remove(path)
+    wall = sum(runs["warm"].values())
+    return {"frames": len(frames), "height": H, "width": W,
+            "stage_ms": runs, "warm_wall_ms": wall,
+            "fps": len(frames) * 1e3 / wall, "png": png,
+            "profile": prof, "peak_bytes": peak, "launches": launches,
+            "launches_per_frame": {k: v / len(frames)
+                                   for k, v in launches.items()},
+            "bpp": bpp, "psnr": metrics, "ocr_exact": {
+                "source": ocr_src, "fused": ocr_fused},
+            "ocr_read": read, "texts": texts, "map50": map50,
+            "plate_hits": lp_hits, "plate_iou": lp_iou,
+            "face_hits": fc_hits, "face_iou": fc_iou,
+            "streams_checked": n_streams, "fused_checked": n_fused,
+            "device": smi}
+
+
+def say_vcm(v, held_s, smi):
+    tag = f"[vcm] {v['frames']} frames {v['width']}x{v['height']}"
+    for run in ("cold", "warm"):
+        say(f"{tag} {run} stage wall ms: "
+            + ", ".join(f"{k} {x:.1f}" for k, x in v["stage_ms"][run].items())
+            + f" ({smi})")
+    say(f"{tag} warm pipeline {v['warm_wall_ms']:.1f} ms, {v['fps']:.3f} fps;"
+        f" peak {v['peak_bytes'] / 2**30:.2f} GiB ({smi})")
+    p = v["profile"]
+    say(f"{tag} profiled run: wall {p['wall_ms']:.1f} ms, device busy "
+        f"{p['device_busy_ms']:.1f} ms, device-busy share "
+        f"{1 - p['idle_share']:.3f}; top: " + ", ".join(
+            f"{k['name'][:100]} {k['ms']:.1f} ms x{k['launches']}"
+            for k in p["top_kernels"][:4]) + f" ({smi})")
+    say(f"{tag} launches (warm run) {v['launches']}, per frame "
+        + ", ".join(f"{k} {x:g}" for k, x in v["launches_per_frame"].items())
+        + f" ({smi})")
+    say(f"{tag} bpp base {v['bpp']['base']:.6f}, enhancement "
+        f"{v['bpp']['enhancement']:.6f}, total {v['bpp']['total']:.6f}; PSNR "
+        f"total {v['psnr']['total_psnr']:.4f} dB, base "
+        f"{v['psnr']['base_psnr']:.4f} dB, ROI {v['psnr']['roi_psnr']:.4f} dB"
+        f" (random damped codecs: not gated; {smi})")
+    say(f"{tag} OCR exact-match source {v['ocr_exact']['source']:.3f}, fused "
+        f"{v['ocr_exact']['fused']:.3f} (texts {v['texts']}, source reads "
+        f"{v['ocr_read']['source']}); plate mAP50 {v['map50']:.4f}; plates "
+        f"at IoU>=0.5 per frame {v['plate_hits']} {v['plate_iou']}, faces "
+        f"{v['face_hits']} {v['face_iou']} ({smi})")
+    say(f"{tag} PNG codec: write {v['png']['write_ms_per_frame']:.1f} ms per "
+        f"frame, read {v['png']['read_ms_up_filter']:.1f} ms (Up filter), "
+        f"{v['png']['read_ms_paeth_filter']:.1f} ms (Paeth filter) (host of "
+        f"{smi})")
+    say(f"{tag} {v['streams_checked']} .bin files decode to the encoder's "
+        f"recon, {v['fused_checked']} fused frames == base + mask x residual "
+        f"({held_s:.1f} s; {smi})")
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "smoke_out"),
@@ -947,10 +1443,20 @@ def main():
         f"{', '.join(batched)} ({time.perf_counter() - t:.1f} s; {smi})")
     serving = run_serving(intra, dmc, intra16, dmc16, smi)
 
+    t = time.perf_counter()
+    vcm = run_vcm(out_dir, smi)
+    say_vcm(vcm, time.perf_counter() - t, smi)
+    vcm["intra_conv_launches"] = intra_conv_launches()
+    for r in vcm["intra_conv_launches"]:
+        say(f"[vcm] I-frame conv {r['conv']} input {r['input']} alone: "
+            f"{r['launches']} launches, {r['device_ms']:.2f} ms device "
+            f"({r['top_launches']} x {r['top_kernel']}; {smi})")
+
     # one entry per kernel: its first (main-path) shape, and its launches
-    # summed over the main paths, the two GOPs and the two batched serving
-    # runs (each read with the counts reset just before it)
-    paths = gops + serving["batch"]
+    # summed over the main paths: the two GOPs, the two batched serving
+    # runs and the warm VCM pipeline run (each read with the counts reset
+    # just before it)
+    paths = gops + serving["batch"] + [vcm]
     kernels = []
     for name in ("warp", "subpel_conv1x1", "pixel_shuffle_relayout",
                  "warp_twopass"):
@@ -966,7 +1472,8 @@ def main():
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "kernel_rows": rows, "reference": ref,
                    "bench": benches, "gops": gops, "serving": serving,
-                   "kernels_batched": batched, "kernels": kernels}, f,
+                   "kernels_batched": batched, "vcm": vcm,
+                   "kernels": kernels}, f,
                   indent=1)
     say(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s "
         f"({smi})")

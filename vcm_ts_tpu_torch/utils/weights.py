@@ -14,17 +14,30 @@ every weight by `kernel_scale` = 0.5 gives the "damped" control on which
 streams are compared byte for byte; `make_intra` and `make_dmc` build the
 seeded damped models that the port's bench and chip_smoke.py drive (no
 DMC or IntraNoAR checkpoint ships in the repo).
+
+Checkpoints: `load_torch_state_dict` reads a reference DCVC-HEM .pth with
+torch.load(weights_only=True), `load_codec_weights` loads one into a port
+model (every parameter must be covered; stray keys are tolerated, as the
+JAX importer's strict="cover"), and the q-scale readers take the rate
+anchors from one. The detector and OCR .npz files (pretrained/) load
+through `yolo_state_dicts`, `mtcnn_state_dicts` and `ocr_state_dict`.
 """
 
 from __future__ import annotations
 
+import json
 import math
+import os
 
 import numpy as np
 import torch
 import torch.nn as nn
 
 from ..entropy.bit_estimator import Bitparm
+
+# the shipped detector and OCR weights (the repository's pretrained/)
+PRETRAINED = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "pretrained")
 
 
 def state_dict_from_flax(params: dict) -> dict:
@@ -92,3 +105,128 @@ def make_dmc(device="cuda", fast_warp: bool = False) -> nn.Module:
 
     return init_params(DMC(fast_warp=fast_warp, device=device), seed=1,
                        kernel_scale=0.5)
+
+
+# ----------------------------------------------------------- checkpoints
+def load_torch_state_dict(ckpt_path: str) -> dict:
+    """A reference .pth as {name: f32 CPU tensor} (unwraps "state_dict" /
+    "net" and a "module." prefix). Tensors only: weights_only=True."""
+    ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+    if "state_dict" in ckpt:
+        ckpt = ckpt["state_dict"]
+    if "net" in ckpt:
+        ckpt = ckpt["net"]
+    return {(k[len("module."):] if k.startswith("module.") else k):
+            torch.as_tensor(v) for k, v in ckpt.items()}
+
+
+def require_pth(path: str) -> None:
+    if not path.endswith(".pth"):
+        raise NotImplementedError(
+            f"{path}: the port loads reference .pth checkpoints; the JAX "
+            "package's own checkpoints (train/checkpoint.CheckPointer) wait "
+            "for the port's training slice")
+
+
+def load_codec_weights(model: nn.Module, path: str) -> nn.Module:
+    """Load a .pth into a port codec model. Every parameter and buffer of
+    the model must be in the file; keys the model lacks are ignored."""
+    require_pth(path)
+    sd = load_torch_state_dict(path)
+    missing, _ = model.load_state_dict(sd, strict=False)
+    if missing:
+        raise KeyError(f"{path} does not cover the model: {missing[:10]}"
+                       f"{' ...' if len(missing) > 10 else ''}")
+    return model
+
+
+def get_q_scales_from_ckpt(ckpt_path: str):
+    """(y_q_scales, mv_y_q_scales) of a DMC checkpoint."""
+    sd = load_torch_state_dict(ckpt_path)
+    return (sd["y_q_scale"].float().numpy().reshape(-1),
+            sd["mv_y_q_scale"].float().numpy().reshape(-1))
+
+
+def get_i_frame_q_scales_from_ckpt(ckpt_path: str):
+    """q_scales of an IntraNoAR checkpoint."""
+    return load_torch_state_dict(ckpt_path)["q_scale"].float().numpy(
+        ).reshape(-1)
+
+
+# ---------------------------------------------------- detector .npz files
+def _npz(path: str):
+    data = np.load(path)
+    return data, json.loads(str(data["__meta__"]))
+
+
+def yolo_state_dicts(npz_path: str):
+    """(meta, backbone state dict, head state dict) of a YOLOv8 .npz with
+    ultralytics names: "model.22." is the head; its constant `dfl.` kernel
+    is not a parameter."""
+    data, meta = _npz(npz_path)
+    bb, head = {}, {}
+    for k in data.files:
+        if k.startswith("model.22."):
+            if not k.startswith("model.22.dfl."):
+                head[k[len("model.22."):]] = torch.from_numpy(data[k])
+        elif k.startswith("model."):
+            bb[k[len("model."):]] = torch.from_numpy(data[k])
+    return meta, bb, head
+
+
+def mtcnn_state_dicts(npz_path: str) -> dict:
+    """{"pnet": sd, "rnet": sd, "onet": sd} of an MTCNN .npz (torch names)."""
+    data, _ = _npz(npz_path)
+    return {net: {k[len(net) + 1:]: torch.from_numpy(data[k])
+                  for k in data.files if k.startswith(net + ".")}
+            for net in ("pnet", "rnet", "onet")}
+
+
+def ocr_state_dict(npz_path: str, charset: str) -> dict:
+    """The plate-OCR .npz (a flax tree, "/"-joined names) as the port's
+    PlateRecognizer state dict. Conv kernels HWIO -> OIHW, GroupNorm
+    scale -> weight, dense kernels transposed. Each flax OptimizedLSTMCell
+    (gates i, f, g, o, as nn.LSTM) becomes one direction of an nn.LSTM:
+    the input-side layers ii/if/ig/io have no bias and the hidden-side
+    ones hi/hf/hg/ho carry it, so bias_ih = 0 and bias_hh = the flax bias;
+    cell 0 runs forward, cell 1 on the flipped sequence (the reverse
+    direction)."""
+    data, meta = _npz(npz_path)
+    if meta.get("charset", charset) != charset:
+        raise ValueError(f"{npz_path}: charset mismatch")
+    tree: dict = {}
+    for key in data.files:
+        if key == "__meta__":
+            continue
+        node = tree
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = np.asarray(data[key])
+    gates = ("i", "f", "g", "o")
+    sd = {}
+    for name, node in tree.items():
+        if name.startswith("conv"):
+            sd[name + ".weight"] = node["kernel"].transpose(3, 2, 0, 1)
+            sd[name + ".bias"] = node["bias"]
+        elif name.startswith("gn"):
+            sd[name + ".weight"] = node["scale"]
+            sd[name + ".bias"] = node["bias"]
+        elif name == "head":
+            sd["head.weight"] = node["kernel"].T
+            sd["head.bias"] = node["bias"]
+        elif name.startswith("BiLSTM_"):
+            pre = "lstm" + name[len("BiLSTM_"):] + "."
+            for cell, suffix in (("0", ""), ("1", "_reverse")):
+                c = node["OptimizedLSTMCell_" + cell]
+                sd[pre + "weight_ih_l0" + suffix] = np.concatenate(
+                    [c["i" + g]["kernel"].T for g in gates])
+                sd[pre + "weight_hh_l0" + suffix] = np.concatenate(
+                    [c["h" + g]["kernel"].T for g in gates])
+                bias = np.concatenate([c["h" + g]["bias"] for g in gates])
+                sd[pre + "bias_ih_l0" + suffix] = np.zeros_like(bias)
+                sd[pre + "bias_hh_l0" + suffix] = bias
+        else:
+            raise KeyError(f"{npz_path}: unknown OCR parameter group {name}")
+    return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+            for k, v in sd.items()}
