@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: kernels, bench, GOPs,
-serving, the VCM pipeline.
+serving, the VCM pipeline, training.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -49,7 +49,18 @@ result line):
    B and C launched, the fused frames equal base + mask x residual
    recomputed from the files. Then each IntraNoAR conv alone at its
    1088x1920 shape: those whose cuDNN algorithm launches 100 kernels or
-   more.
+   more;
+8. training (vcm_ts_tpu_torch/train): kernels A' (the warp's backward) and
+   C' (k-major space-to-depth) against their plain versions, f32 and
+   bf16, at the training step's shapes (256x256 crops, batch 4; A' under
+   an iid and a zero flow) and one 1088x1920 row each, beside the library
+   call (grid_sampler_2d_backward; pixel_unshuffle + the channel
+   permutation) and the cuBLAS products of kernel B's backward; a 64x64
+   cascade step of the seeded DMC on the CPU and on the card (loss,
+   gradients, parameters after AdamW); the port bench's --train-step in
+   f32, --mp and --grad-accum 2 (frames/s, peak memory); one cascade step
+   under the profiler (launches counted); and a gate that the loss on a
+   fixed 256x256 batch falls over 20 steps.
 
 The last three lines of standard output are the `kernels` JSON object, the
 nvidia-smi line, and then {"ok": true, "device": {...}}. A longer record
@@ -82,15 +93,22 @@ REPLACES = {
     "pixel_shuffle_relayout": "vcm_ts_tpu/ops/subpel_pallas.py:59 "
                               "(_relayout_kernel) + :73 "
                               "(_relayout_full_kernel)",
+    "warp_bwd": "vcm_ts_tpu/ops/warp.py:49 (_warp_one_gather's gradient; "
+                "XLA autodiff)",
+    "space_to_depth": "vcm_ts_tpu/ops/subpel_pallas.py:131 "
+                      "(_kmajor_space_to_depth, in _relayout_bwd:149 and "
+                      "_conv1x1_bwd:221)",
 }
 SOURCES = {"warp": "vcm_ts_tpu_torch/csrc/warp.cu",
            "subpel_conv1x1": "vcm_ts_tpu_torch/csrc/subpel_conv1x1.cu",
            "pixel_shuffle_relayout": "vcm_ts_tpu_torch/csrc/pixel_shuffle.cu",
-           "warp_twopass": "vcm_ts_tpu_torch/csrc/warp_twopass.cu"}
+           "warp_twopass": "vcm_ts_tpu_torch/csrc/warp_twopass.cu",
+           "warp_bwd": "vcm_ts_tpu_torch/csrc/warp_bwd.cu",
+           "space_to_depth": "vcm_ts_tpu_torch/csrc/space_to_depth.cu"}
 # the __global__ functions of csrc/*.cu, as the profiler names them
 PORT_KERNEL_FUNCS = ("warp_kernel", "warp_narrow_kernel", "warp_twopass_kernel",
                      "conv_mma_bf16", "conv_fma_f32", "conv_narrow",
-                     "relayout_kernel")
+                     "relayout_kernel", "warp_bwd_kernel", "s2d_kernel")
 H, W = 1088, 1920
 IQ, PQ = 0.5, 0.7
 CL = torch.channels_last
@@ -1344,6 +1362,356 @@ def say_vcm(v, held_s, smi):
         f"recon, {v['fused_checked']} fused frames == base + mask x residual "
         f"({held_s:.1f} s; {smi})")
 
+# ------------------------------------------------------------------ phase 8
+TH, TW, TN = 256, 256, 4  # the training crops and batch (bench.py)
+# Kernel A' at the cascade step's warp sites (batch 4 at 256x256), and one
+# 1088x1920 row: (label, channels of each tensor, N, H, W).
+WARP_BWD_SHAPES = (
+    ("67ch packed (3+64)", (3, 64), TN, TH, TW),
+    ("3ch SpyNet level 0", (3,), TN, TH, TW),
+    ("3ch SpyNet level 1", (3,), TN, TH // 2, TW // 2),
+    ("3ch SpyNet level 2", (3,), TN, TH // 4, TW // 4),
+    ("3ch SpyNet level 3", (3,), TN, TH // 8, TW // 8),
+    ("64ch context2", (64,), TN, TH // 2, TW // 2),
+    ("64ch context3", (64,), TN, TH // 4, TW // 4),
+    ("67ch packed (3+64)", (3, 64), 1, H, W),
+)
+# Kernel C' at every subpel site of the cascade step (the gradient of each
+# SubpelConv's output, batch 4 at 256x256; B: the 1x1 sites, C: the 3x3
+# ones), one row per shape, and one 1088x1920 row: (sites, C, N, output
+# H, W).
+S2D_SHAPES = (
+    ("UNet up2 (B), contextual decoder up4 (C)", 32, TN, TH, TW),
+    ("context fusion conv2_up (C)", 64, TN, TH, TW),
+    ("mv decoder last (B)", 2, TN, TH, TW),
+    ("mv decoder block 3, UNet up3 (B), fusion conv3_up, contextual "
+     "decoder up3 (C)", 64, TN, TH // 2, TW // 2),
+    ("mv decoder block 2 (B), contextual decoder up2 (C)", 64, TN, TH // 4,
+     TW // 4),
+    ("mv decoder block 1 (B), contextual decoder up1 (C)", 64, TN, TH // 8,
+     TW // 8),
+    ("mv hyper decoder (B)", 96, TN, TH // 16, TW // 16),
+    ("contextual hyper decoder (B)", 144, TN, TH // 16, TW // 16),
+    ("contextual hyper decoder (B)", 96, TN, TH // 32, TW // 32),
+    ("mv hyper decoder (B)", 64, TN, TH // 32, TW // 32),
+    ("1088x1920", 64, 1, H, W),
+)
+
+
+def _bf16_or_f32_tol(want, dtype, f32_rel):
+    """f32: f32_rel of the largest magnitude; bf16: one bf16 ulp of it
+    (both versions cast an f32 sum once)."""
+    scale = float(want.float().abs().max())
+    return (f32_rel if dtype == torch.float32 else 2.0 ** -7) * scale
+
+
+def check_warp_bwd(g):
+    """Kernel A' against warp_backward_plain, f32 and bf16, iid N(0, 8^2)
+    and zero flows; d flow within 1e-5 (fixed order) and d im within 1e-4
+    (f32 atomics, order changing run to run) of the largest magnitude in
+    f32, one bf16 ulp in bf16. Beside it aten's grid_sampler_2d_backward
+    (bilinear, border, align_corners=True: the same function up to the
+    clip's 0.5 at a bound) on the concatenated tensor."""
+    from vcm_ts_tpu_torch.ops import warp as tw
+
+    rows = []
+    for name, chans, n, h, w in WARP_BWD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for kind in ("iid", "zero"):
+                if (h, w) == (H, W) and kind == "zero":
+                    continue
+                ims = [(torch.rand if c == 3 else torch.randn)(
+                    (n, c, h, w), device="cuda", generator=g).to(
+                        dtype=dtype, memory_format=CL) for c in chans]
+                gs = [torch.randn((n, c, h, w), device="cuda",
+                                  generator=g).to(dtype=dtype,
+                                                  memory_format=CL)
+                      for c in chans]
+                flow = (torch.cat([make_flow("iid", h, w, g)
+                                   for _ in range(n)])
+                        if kind == "iid" else torch.zeros(
+                            (n, 2, h, w), device="cuda")).to(
+                    dtype=dtype, memory_format=CL)
+                dflow, dims = tw.warp_backward_cuda(ims, flow, gs)
+                wflow, wims = tw.warp_backward_plain(ims, flow, gs)
+                err_f = float((dflow.float() - wflow.float()).abs().max())
+                err_i = max(float((a.float() - b.float()).abs().max())
+                            for a, b in zip(dims, wims))
+                tol_f = _bf16_or_f32_tol(wflow, dtype, 1e-5)
+                tol_i = max(_bf16_or_f32_tol(b, dtype, 1e-4) for b in wims)
+                dt = "f32" if dtype == torch.float32 else "bf16"
+                size = f"N={n} {h}x{w}"
+                label = f"{name} {size} {dt}, {kind} flow"
+                if not (err_f <= tol_f and err_i <= tol_i):
+                    raise AssertionError(
+                        f"warp_bwd {label}: d flow err {err_f} (tol "
+                        f"{tol_f}), d im err {err_i} (tol {tol_i})")
+                cat = torch.cat(ims, 1) if len(ims) > 1 else ims[0]
+                gcat = torch.cat(gs, 1) if len(gs) > 1 else gs[0]
+                grid = torch.cat([_grid(flow[i:i + 1].float())
+                                  for i in range(n)]).to(dtype)
+                t = times(lambda: tw.warp_backward_cuda(ims, flow, gs),
+                          lambda: tw.warp_backward_plain(ims, flow, gs),
+                          lambda: torch.ops.aten.grid_sampler_2d_backward(
+                              gcat, cat, grid, 0, 1, True, [True, True]))
+                b, by = bound_ms(3 * nbytes(*ims) + 2 * nbytes(flow),
+                                 22 * cat.numel(), torch.float32)
+                rows.append(dict(
+                    name="warp_bwd", shape=label, dtype=dt, flow=kind,
+                    max_abs_err=max(err_f, err_i),
+                    err_dflow=err_f, tol_dflow=tol_f, err_dim=err_i,
+                    tol_dim=tol_i, tol=max(tol_f, tol_i), **t,
+                    library="aten.grid_sampler_2d_backward(border, "
+                            "align_corners=True)",
+                    bound_ms=b, bound_by=by))
+    return rows
+
+
+def check_space_to_depth(g):
+    """Kernel C' bit-identical to space_to_depth_plain at every subpel
+    site; beside it F.pixel_unshuffle + the c-major -> k-major channel
+    permutation; at the first kernel-B site also the cuBLAS products of
+    B's backward (dx = gk w^T, dw = x^T gk, f32)."""
+    from vcm_ts_tpu_torch.ops import subpel as ts
+
+    rows = []
+    for name, c, n, h, w in S2D_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            gr = torch.randn((n, c, h, w), device="cuda", generator=g).to(
+                dtype=dtype, memory_format=CL)
+            got = ts.space_to_depth_cuda(gr, 2)
+            if not torch.equal(got, ts.space_to_depth_plain(gr, 2)):
+                raise AssertionError(f"space_to_depth {name} C={c}: not "
+                                     "bit-identical to the plain version")
+
+            def library():
+                u = F.pixel_unshuffle(gr, 2)
+                return u.reshape(n, c, 4, h // 2, w // 2).transpose(
+                    1, 2).reshape(n, 4 * c, h // 2, w // 2).contiguous(
+                        memory_format=CL)
+
+            if not torch.equal(library(), got):
+                raise AssertionError("pixel_unshuffle + permutation != C'")
+            t = times(lambda: ts.space_to_depth_cuda(gr, 2),
+                      lambda: ts.space_to_depth_plain(gr, 2), library)
+            b, by = bound_ms(2 * nbytes(gr), 0, dtype)
+            dt = "f32" if dtype == torch.float32 else "bf16"
+            row = dict(name="space_to_depth",
+                       shape=f"{name} C={c} N={n} {h}x{w} {dt}", dtype=dt,
+                       max_abs_err=0.0, tol=0.0, **t,
+                       library="F.pixel_unshuffle + channel permutation",
+                       bound_ms=b, bound_by=by)
+            if name.startswith("UNet up2"):
+                cin = 64
+                gk2 = got.permute(0, 2, 3, 1).reshape(-1, 4 * c).float()
+                x2 = torch.randn((gk2.shape[0], cin), device="cuda",
+                                 generator=g)
+                wt = torch.randn((4 * c, cin), device="cuda", generator=g)
+                row["b_bwd_dx_ms"] = graph_ms(lambda: gk2 @ wt)
+                row["b_bwd_dw_ms"] = graph_ms(lambda: x2.t() @ gk2)
+            rows.append(row)
+    return rows
+
+
+def _train_stage(p_frames=2):
+    from vcm_ts_tpu_torch.train.stages import StageParams
+
+    return StageParams(stage=0, p_frames=p_frames, trainable_mode="all",
+                       forward_method="cascade", loss_dist_key="mse",
+                       loss_rate_keys=("bpp_y", "bpp_z", "bpp_mv_y",
+                                       "bpp_mv_z"), lr=1e-4,
+                       perceptual_loss=False)
+
+
+LAMBDAS = [85.0, 170.0, 380.0, 840.0]
+
+
+def _train_batch(h, w, p_frames=2, seed=0):
+    """(p_frames + 1, 4, h, w, 3): four seeded moving sequences."""
+    seqs = [moving_frames(p_frames + 1, h, w, seed=seed + i)
+            for i in range(TN)]
+    return torch.stack([torch.cat([s[t] for s in seqs])
+                        for t in range(p_frames + 1)])
+
+
+def train_reference():
+    """One cascade step (p_frames 2, remat) of the seeded DMC at 64x64 on
+    the CPU (plain versions) and on the card (kernels), the same noise:
+    FrameAux rtol 1e-3 (cuDNN's and the CPU's f32 convs sum in other
+    orders, TF32 off); gradients (the first moments) within 2e-2 of each
+    leaf's largest magnitude; parameters after AdamW within 1e-6 + 0.05 lr
+    where |g| is above 4e-2 of its leaf's largest (there Adam's first step
+    is a sign both sides share), within 2.1 lr elsewhere."""
+    import copy
+
+    from vcm_ts_tpu_torch.models.dmc import make_dpb
+    from vcm_ts_tpu_torch.train import train_step as tts
+    from vcm_ts_tpu_torch.train.optimizer import make_stage_optimizer
+    from vcm_ts_tpu_torch.utils.weights import make_dmc
+
+    lr = 1e-4
+    model = make_dmc("cpu")
+    seq = _train_batch(64, 64, seed=7)
+    noises = tts.draw_cascade_noise(model, seq[1:],
+                                    torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(model).to(dev)
+        opt = make_stage_optimizer(m, "all", lr)
+        step = tts.make_cascade_step(m, opt, _train_stage(), lambdas=LAMBDAS,
+                                     dist_lambda=1.0, pl_lambda=0.0)
+        xs = seq[1:].to(dev)
+        aux, _ = step(xs, xs, make_dpb(seq[0].to(dev)),
+                      [tuple(t.to(dev) for t in n) for n in noises])
+        out[dev] = (aux, {k: v.cpu() for k, v in opt.mu.items()},
+                    {k: p.detach().cpu() for k, p in m.named_parameters()})
+    err = {}
+    for f in tts.FrameAux._fields:
+        a = getattr(out["cuda"][0], f).cpu()
+        b = getattr(out["cpu"][0], f)
+        err[f] = float(((a - b).abs() / b.abs().clamp_min(1e-6)).max())
+        if not err[f] <= 1e-3:
+            raise AssertionError(f"train step 64x64 card vs CPU: {f} "
+                                 f"{a.tolist()} vs {b.tolist()}")
+    g_err = p_err = 0.0
+    for k, want in out["cpu"][1].items():
+        scale = max(float(want.abs().max()), 1e-30)
+        e = float((out["cuda"][1][k] - want).abs().max()) / scale
+        g_err = max(g_err, e)
+        if not e <= 2e-2:
+            raise AssertionError(f"train step 64x64: gradient {k} off by "
+                                 f"{e} of its scale")
+        firm = want.abs() > 4e-2 * scale
+        d = (out["cuda"][2][k] - out["cpu"][2][k]).abs()
+        tol = torch.where(firm, torch.full_like(d, 1e-6 + 0.05 * lr),
+                          torch.full_like(d, 2.1 * lr))
+        if not bool((d <= tol).all()):
+            raise AssertionError(f"train step 64x64: parameter {k} off by "
+                                 f"{float(d.max())} after AdamW")
+        p_err = max(p_err, float(d.max()))
+    return {"aux_max_rel_err": err, "grad_max_rel_err": g_err,
+            "param_max_abs_err": p_err,
+            "loss_cpu": out["cpu"][0].loss.tolist(),
+            "loss_cuda": out["cuda"][0].loss.tolist()}
+
+
+def run_train_bench(label, argv):
+    """The port bench's --train-step; every kernel of the training path
+    launched (A, A', B, C, C'; not D)."""
+    res = run_bench(label, argv)
+    missing = [k for k in ("warp", "warp_bwd", "subpel_conv1x1",
+                           "pixel_shuffle_relayout", "space_to_depth")
+               if not res["launches"][k] > 0]
+    if missing:
+        raise AssertionError(f"train bench {label}: {missing} not launched, "
+                             f"launches {res['launches']}")
+    return res
+
+
+def run_train(smi):
+    """Phase 8 after the kernel rows: the 64x64 reference, the bench, one
+    profiled cascade step with its launches, the 20-step gate."""
+    from vcm_ts_tpu_torch.models.dmc import make_dpb
+    from vcm_ts_tpu_torch.ops import cuda_build
+    from vcm_ts_tpu_torch.train import train_step as tts
+    from vcm_ts_tpu_torch.train.optimizer import make_stage_optimizer
+    from vcm_ts_tpu_torch.utils.weights import make_dmc
+
+    out = {}
+    t = time.perf_counter()
+    out["reference"] = train_reference()
+    say(f"[train] 64x64 cascade step card vs CPU: {out['reference']} "
+        f"({time.perf_counter() - t:.1f} s)")
+
+    common = ["--train-step", "--frames", "16", "--warmup", "2"]
+    out["bench"] = []
+    for label, extra in (("f32", []), ("mp", ["--mp"]),
+                         ("f32 grad-accum 2", ["--grad-accum", "2"])):
+        b = run_train_bench(label, common + extra)
+        out["bench"].append(b)
+        say(f"[train bench] {label}: {b['value']} frames/s, step "
+            f"{b['step_ms']:.1f} ms, peak {b['peak_mem_gib']} GiB, loss "
+            f"{[round(v, 3) for v in b['loss']]}, launches {b['launches']} "
+            f"({b['held_s']:.1f} s; {smi})")
+
+    model = make_dmc("cuda")
+    opt = make_stage_optimizer(model, "all", 1e-4)
+    step = tts.make_cascade_step(model, opt, _train_stage(),
+                                 lambdas=LAMBDAS, dist_lambda=1.0,
+                                 pl_lambda=0.0)
+    seq = _train_batch(TH, TW).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def one():
+        noises = tts.draw_cascade_noise(model, seq[1:], gen)
+        return step(seq[1:], seq[1:], make_dpb(seq[0]), noises)[0]
+
+    one()
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    one()
+    torch.cuda.synchronize()
+    out["launches"] = dict(cuda_build.LAUNCHES)
+    for k in ("warp", "warp_bwd", "subpel_conv1x1", "pixel_shuffle_relayout",
+              "space_to_depth"):
+        if not out["launches"][k] > 0:
+            raise AssertionError(f"cascade step: {k} not launched: "
+                                 f"{out['launches']}")
+    say(f"[train] one cascade step (p_frames 2, remat, 4x{TH}x{TW} f32) "
+        f"launches {out['launches']}")
+    out["profile"] = profile_ms(one)
+    p = out["profile"]
+    top = ", ".join(f"{k['name'][:50]} {k['ms']:.1f} ms x{k['launches']}"
+                    for k in p["top_kernels"][:6])
+    say(f"[train profile] cascade step: wall {p['wall_ms']:.1f} ms, device "
+        f"busy {p['device_busy_ms']:.1f} ms, idle share "
+        f"{p['idle_share']:.3f}, {p['launches']} launches; top: {top} "
+        f"({smi})")
+    ours = ", ".join(f"{k} {v['ms']:.3f} ms x{v['launches']}"
+                     for k, v in p["port_kernels"].items())
+    say(f"[train profile] port kernels: {ours}")
+
+    losses = []
+    for _ in range(20):
+        losses.append(float(one().loss.mean()))
+    out["gate_losses"] = losses
+    if not (all(np.isfinite(losses))
+            and np.mean(losses[-3:]) < np.mean(losses[:3])):
+        raise AssertionError(f"the loss did not fall over 20 steps: {losses}")
+    say(f"[train gate] loss over 20 cascade steps on a fixed 4x{TH}x{TW} "
+        f"batch: {losses[0]:.4f} -> {losses[-1]:.4f} (first 3 mean "
+        f"{np.mean(losses[:3]):.4f}, last 3 {np.mean(losses[-3:]):.4f})")
+    return out
+
+
+def say_rows(rows):
+    """One [kernel] line per kernel row."""
+    for r in rows:
+        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        extra = ("" if r["name"] != "warp_twopass" else
+                 f" exact_warp_ms {r['exact_warp_ms']:.4f} grid_sample_ms "
+                 f"{r['grid_sample_ms']:.4f} |flow|>D share "
+                 f"{r['flow_beyond_d']:.2f}")
+        if "per_frame" in r:
+            extra += " launches per frame (P enc / P dec / I dec) " + \
+                " / ".join(map(str, r["per_frame"]))
+        if r["name"] == "warp_bwd":
+            extra += (f" (d flow err {r['err_dflow']:.3g} tol "
+                      f"{r['tol_dflow']:.3g}; d im err {r['err_dim']:.3g} "
+                      f"tol {r['tol_dim']:.3g})")
+        if "b_bwd_dx_ms" in r:
+            extra += (f" kernel B backward cuBLAS f32 dx "
+                      f"{r['b_bwd_dx_ms']:.4f} ms dw {r['b_bwd_dw_ms']:.4f}"
+                      " ms")
+        lib_e = ("" if r["library_eager_ms"] is None
+                 else f" (eager {r['library_eager_ms']:.4f})")
+        say(f"[kernel] {r['name']} {r['shape']}: kernel_ms {r['ms']:.4f} "
+            f"(eager {r['eager_ms']:.4f}) plain_ms {r['plain_ms']:.4f} "
+            f"library_ms {lib}{lib_e} bound_ms "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}) max_abs_err "
+            f"{r['max_abs_err']:.3g} (tol {r['tol']:.3g}){extra}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "smoke_out"),
@@ -1376,22 +1744,7 @@ def main():
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = (check_warp(g) + check_subpel_conv1x1(g) + check_relayout(g)
             + check_warp_twopass(g))
-    for r in rows:
-        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        extra = ("" if r["name"] != "warp_twopass" else
-                 f" exact_warp_ms {r['exact_warp_ms']:.4f} grid_sample_ms "
-                 f"{r['grid_sample_ms']:.4f} |flow|>D share "
-                 f"{r['flow_beyond_d']:.2f}")
-        if "per_frame" in r:
-            extra += " launches per frame (P enc / P dec / I dec) " + \
-                " / ".join(map(str, r["per_frame"]))
-        lib_e = ("" if r["library_eager_ms"] is None
-                 else f" (eager {r['library_eager_ms']:.4f})")
-        say(f"[kernel] {r['name']} {r['shape']}: kernel_ms {r['ms']:.4f} "
-            f"(eager {r['eager_ms']:.4f}) plain_ms {r['plain_ms']:.4f} "
-            f"library_ms {lib}{lib_e} bound_ms "
-            f"{r['bound_ms']:.4f} ({r['bound_by']}) max_abs_err "
-            f"{r['max_abs_err']:.3g} (tol {r['tol']:.3g}){extra}")
+    say_rows(rows)
 
     t = time.perf_counter()
     intra, dmc = make_intra("cuda"), make_dmc("cuda")
@@ -1452,14 +1805,22 @@ def main():
             f"{r['launches']} launches, {r['device_ms']:.2f} ms device "
             f"({r['top_launches']} x {r['top_kernel']}; {smi})")
 
+    t = time.perf_counter()
+    train_rows = check_warp_bwd(g) + check_space_to_depth(g)
+    say_rows(train_rows)
+    say(f"[train] kernels A' and C' checked ({time.perf_counter() - t:.1f} "
+        f"s; {smi})")
+    train = run_train(smi)
+    rows += train_rows
+
     # one entry per kernel: its first (main-path) shape, and its launches
     # summed over the main paths: the two GOPs, the two batched serving
-    # runs and the warm VCM pipeline run (each read with the counts reset
-    # just before it)
-    paths = gops + serving["batch"] + [vcm]
+    # runs, the warm VCM pipeline run and one cascade train step (each read
+    # with the counts reset just before it)
+    paths = gops + serving["batch"] + [vcm, train]
     kernels = []
-    for name in ("warp", "subpel_conv1x1", "pixel_shuffle_relayout",
-                 "warp_twopass"):
+    for name in ("warp", "warp_bwd", "subpel_conv1x1",
+                 "pixel_shuffle_relayout", "space_to_depth", "warp_twopass"):
         r = next(r for r in rows if r["name"] == name)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -1473,7 +1834,7 @@ def main():
         json.dump({"device": smi, "kernel_rows": rows, "reference": ref,
                    "bench": benches, "gops": gops, "serving": serving,
                    "kernels_batched": batched, "vcm": vcm,
-                   "kernels": kernels}, f,
+                   "train": train, "kernels": kernels}, f,
                   indent=1)
     say(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s "
         f"({smi})")

@@ -245,11 +245,15 @@ def test_layers_match_jax(case, fast_shuffle):
 
 
 def test_subpel_conv_caches_kmajor_weights_per_load():
-    """The k-major form is derived once per load, not per call, and a
-    reload refreshes it."""
+    """Where no gradient is recorded (the codec's paths), the k-major form
+    is derived once per load, not per call, and a reload refreshes it;
+    while a gradient to the weights is recorded it is derived every call,
+    differentiably (the training slice)."""
     m = tl.SubpelConv(8, 4, 2, 1)
-    w1 = m.kmajor_weights()
-    assert m.kmajor_weights()[0] is w1[0]
     with torch.no_grad():
+        w1 = m.kmajor_weights()
+        assert m.kmajor_weights()[0] is w1[0]
         m._modules["0"].weight.mul_(2.0)
-    assert m.kmajor_weights()[0] is not w1[0]
+        assert m.kmajor_weights()[0] is not w1[0]
+    wg = m.kmajor_weights()[0]
+    assert wg.requires_grad and m.kmajor_weights()[0] is not wg

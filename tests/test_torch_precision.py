@@ -315,10 +315,18 @@ def test_port_bench_emits_bench_py_keys(mode, monkeypatch, capsys):
     assert "suite_error" not in got and got["value"] > 0
 
 
-def test_port_bench_refuses_what_is_not_ported():
-    """Only --train-step is still refused; the serving modes run."""
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        tbench.run(tbench.parse_args(["--device", "cpu", "--train-step"]))
+def test_port_bench_refuses_what_is_not_ported(monkeypatch):
+    """Nothing of bench.py is refused any more: --train-step runs the
+    train-step bench (stubbed here; tests/test_torch_train_step.py runs
+    it), and only single-stream modes asked for two streams are refused;
+    the serving modes run."""
+    monkeypatch.setattr(tbench, "bench_train_step", lambda args: "train")
+    assert tbench.run(tbench.parse_args(
+        ["--device", "cpu", "--train-step"])) == "train"
+    for flag in (["--latency"], ["--gop", "2"]):
+        with pytest.raises(SystemExit, match="single-stream"):
+            tbench.run(tbench.parse_args(["--device", "cpu", "--streams",
+                                          "2", *flag]))
     for flag in (["--write-stream"], ["--write-stream", "--streams", "2"],
                  ["--pipelined-decode", "--streams", "2"],
                  ["--pipelined-encode", "--streams", "2"]):

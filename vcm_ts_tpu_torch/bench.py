@@ -3,6 +3,7 @@
     python3 -m vcm_ts_tpu_torch.bench [--dtype f32|bf16|mixed] [--fast-warp]
     python3 -m vcm_ts_tpu_torch.bench --device cpu --size 64x64 --frames 2 \\
         --runs 1
+    python3 -m vcm_ts_tpu_torch.bench --train-step [--mp] [--grad-accum 2]
 
 Counterpart of the JAX package's bench.py: the same flags, and ONE JSON
 line with the same keys,
@@ -27,11 +28,17 @@ encode+decode, 1080p padded to 1088x1920, DPB threaded frame to frame):
   with --streams N, N streams through compress_batch / decompress_batch
   (aggregate fps).
 
---fast-shuffle is accepted: the port always runs kernels B and C.
---train-step is not ported (training is a later slice) and raises
-SystemExit. The TPU probe, chip sentinel and compilation cache of bench.py
-have no counterpart here. The completion barrier is
-torch.cuda.synchronize().
+- --train-step: training throughput, bench.py's protocol: one cascade
+  RD step (train/train_step.py) of the DMC at 256x256 (or --size), batch
+  4 rate anchors (lambda 85/170/380/840), BPTT over --p-frames (2),
+  remat on, every parameter trainable, lr 1e-4, AdamW; f32, or bf16
+  compute with f32 masters with --mp; --grad-accum G microbatches.
+  frames/s = 4 x p_frames x steps / s, over max(--frames // 4, 4) steps
+  after --warmup steps; the line adds the peak device memory on a card.
+
+--fast-shuffle is accepted: the port always runs kernels B and C. The TPU
+probe, chip sentinel and compilation cache of bench.py have no
+counterpart here. The completion barrier is torch.cuda.synchronize().
 
 Weights are the seeded, damped init (utils/weights.py): no DMC or
 IntraNoAR checkpoint ships in the repo. `--device` defaults to cuda.
@@ -50,6 +57,9 @@ import torch
 
 from .codec.engine import IntraCodec, VideoCodec, run_sessions
 from .models.dmc import make_dpb
+from .train.optimizer import make_stage_optimizer
+from .train.stages import StageParams
+from .train.train_step import draw_cascade_noise, make_cascade_step
 from .utils.device import resolve_device, set_codec_numerics
 from .utils.precision import cast_params, cast_params_mixed
 from .utils.weights import make_dmc, make_intra
@@ -69,7 +79,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--write-stream", action="store_true",
                     help="real-bitstream compress + decompress per frame "
                          "(batched with --streams N)")
-    ap.add_argument("--size", default="1088x1920")
+    ap.add_argument("--size", default=None,
+                    help="HxW; 1088x1920 (256x256 with --train-step)")
     ap.add_argument("--fast-warp", action="store_true",
                     help="two-pass warp, kernel D (ops/warp_twopass.py)")
     ap.add_argument("--fast-shuffle", action="store_true",
@@ -91,7 +102,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="one I-frame + (N-1) P-frames through real "
                          "container bytes")
     ap.add_argument("--train-step", action="store_true",
-                    help="not ported (ROADMAP.md Queue 1 item 10)")
+                    help="training throughput: cascade RD step (256x256, "
+                         "batch=4 rate anchors, BPTT over --p-frames, remat)")
+    ap.add_argument("--grad-accum", type=int, default=1,
+                    help="with --train-step: gradient accumulation steps")
+    ap.add_argument("--mp", action="store_true",
+                    help="with --train-step: bf16 compute, f32 master "
+                         "parameters and moments")
+    ap.add_argument("--p-frames", type=int, default=2)
     ap.add_argument("--runs", type=int, default=3,
                     help="timed repetitions per reported number")
     ap.add_argument("--device", default="cuda",
@@ -113,25 +131,28 @@ def _cast(model, dtype: str):
     return model
 
 
-def _refuse(args, ns: int) -> None:
-    """SystemExit for what bench.py has and the port does not, and for
-    single-stream modes asked for several streams (bench.py asserts)."""
+def run(args) -> dict:
+    """Run the selected mode; returns the JSON line's object."""
     if args.train_step:
-        raise SystemExit("--train-step: training is not ported yet "
-                         "(ROADMAP.md Queue 1 item 10)")
+        return bench_train_step(args)
+    return _run_codec(args)
+
+
+def _refuse(args, ns: int) -> None:
+    """SystemExit for single-stream modes asked for several streams
+    (bench.py asserts)."""
     if ns > 1 and (args.latency or args.gop):
         raise SystemExit("--latency and --gop are single-stream")
 
 
 @torch.no_grad()
-def run(args) -> dict:
-    """Run the selected mode; returns the JSON line's object."""
+def _run_codec(args) -> dict:
     ns = max(1, args.streams)
     _refuse(args, ns)
     device = resolve_device(args.device)
     if device.type == "cuda":
         set_codec_numerics()
-    h, w = (int(v) for v in args.size.split("x"))
+    h, w = (int(v) for v in (args.size or "1088x1920").split("x"))
     size_tag = "1080p" if (h, w) == (1088, 1920) else f"{h}x{w}"
     dtype = torch.float32 if args.dtype == "f32" else torch.bfloat16
 
@@ -392,6 +413,71 @@ def bench_gop(ctx):
     decode(i_s, p_s)
     t2 = time.perf_counter()
     return gop / (t1 - t0), gop / (t2 - t1)
+
+
+def bench_train_step(args) -> dict:
+    """The cascade train step's frames/s (see the module docstring)."""
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        set_codec_numerics()
+    h, w = (int(v) for v in (args.size or "256x256").split("x"))
+    p_frames = args.p_frames
+    lambdas = [85.0, 170.0, 380.0, 840.0]
+    model = make_dmc(device)
+    stage = StageParams(stage=3, p_frames=p_frames, trainable_mode="all",
+                        forward_method="cascade", loss_dist_key="mse",
+                        loss_rate_keys=("bpp_y", "bpp_z", "bpp_mv_y",
+                                        "bpp_mv_z"),
+                        lr=1e-4, perceptual_loss=False)
+    opt = make_stage_optimizer(model, "all", 1e-4)
+    step = make_cascade_step(model, opt, stage, lambdas=lambdas,
+                             dist_lambda=1.0, pl_lambda=0.0,
+                             compute_dtype=(torch.bfloat16 if args.mp
+                                            else None),
+                             accum_steps=args.grad_accum)
+    rng = np.random.default_rng(0)
+    xs = torch.from_numpy(rng.random((p_frames, 4, h, w, 3))).to(
+        device, torch.float32)
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def one():
+        noises = draw_cascade_noise(model, xs, gen, args.grad_accum)
+        return step(xs, xs, make_dpb(xs[0]), noises)[0]
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    for _ in range(args.warmup):
+        one()
+    sync()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    n_steps = max(args.frames // 4, 4)
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        aux = one()
+    sync()
+    dt = (time.perf_counter() - t0) / n_steps
+    fps = 4 * p_frames / dt
+    res = {
+        "metric": f"cascade train step frames/s "
+                  f"({'bf16-mp' if args.mp else 'f32'}, {h}x{w}, "
+                  f"batch=4 anchors, p_frames={p_frames}, BPTT, remat"
+                  + (f", grad-accum={args.grad_accum}"
+                     if args.grad_accum > 1 else "") + ")",
+        "value": round(fps, 3),
+        "unit": "frames/s",
+        "vs_baseline": 0.0,
+        "step_ms": round(dt * 1e3, 3),
+        "steps": n_steps,
+        "loss": [float(v) for v in aux.loss],
+        "device": str(device),
+    }
+    if device.type == "cuda":
+        res["peak_mem_gib"] = round(
+            torch.cuda.max_memory_allocated(device) / 2 ** 30, 3)
+    return res
 
 
 def main(argv=None) -> int:

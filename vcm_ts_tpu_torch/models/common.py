@@ -18,12 +18,13 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..ops.math import lower_bound, quant_round
+from ..ops.math import lower_bound, quant_round, quant_ste
 
 
-def quant(x):
-    """Eval-mode quantization: round half to even."""
-    return quant_round(x)
+def quant(x, training: bool = False):
+    """Round half to even; in training with a straight-through gradient.
+    The codec's stages call the eval form."""
+    return quant_ste(x) if training else quant_round(x)
 
 
 def checkerboard_masks(h: int, w: int, dtype=torch.float32, device="cpu"):
@@ -35,12 +36,12 @@ def checkerboard_masks(h: int, w: int, dtype=torch.float32, device="cpu"):
     return mask0, 1.0 - mask0
 
 
-def process_with_mask(y, scales, means, mask):
+def process_with_mask(y, scales, means, mask, training: bool = False):
     """One checkerboard half-step."""
     scales_hat = scales * mask
     means_hat = means * mask
     y_res = (y - means_hat) * mask
-    y_q = quant(y_res)
+    y_q = quant(y_res, training)
     y_hat = y_q + means_hat
     return y_res, y_q, y_hat, scales_hat
 
@@ -58,7 +59,8 @@ def _masks_like(t):
 
 
 def forward_dual_prior(y, means, scales, quant_step,
-                       spatial_prior: Callable) -> DualPriorForward:
+                       spatial_prior: Callable, *,
+                       training: bool = False) -> DualPriorForward:
     """Two-step dual-prior coding. `spatial_prior` maps the step-0 context
     (y_hat_0_0 | y_hat_1_1 | means | scales | quant_step), NHWC, to the
     4-way split (scales_0, means_0, scales_1, means_1) for step 1."""
@@ -70,9 +72,9 @@ def forward_dual_prior(y, means, scales, quant_step,
     means_0, means_1 = torch.chunk(means, 2, dim=-1)
 
     y_res_0_0, y_q_0_0, y_hat_0_0, s_hat_0_0 = process_with_mask(
-        y_0, scales_0, means_0, mask0)
+        y_0, scales_0, means_0, mask0, training)
     y_res_1_1, y_q_1_1, y_hat_1_1, s_hat_1_1 = process_with_mask(
-        y_1, scales_1, means_1, mask1)
+        y_1, scales_1, means_1, mask1, training)
 
     params = torch.cat((y_hat_0_0, y_hat_1_1, means, scales, quant_step),
                        dim=-1)
@@ -80,9 +82,9 @@ def forward_dual_prior(y, means, scales, quant_step,
         spatial_prior(params), 4, dim=-1)
 
     y_res_0_1, y_q_0_1, y_hat_0_1, s_hat_0_1 = process_with_mask(
-        y_0, scales_0, means_0, mask1)
+        y_0, scales_0, means_0, mask1, training)
     y_res_1_0, y_q_1_0, y_hat_1_0, s_hat_1_0 = process_with_mask(
-        y_1, scales_1, means_1, mask0)
+        y_1, scales_1, means_1, mask0, training)
 
     def join(a0, a1, b1, b0):
         return torch.cat((a0 + a1, b1 + b0), dim=-1)

@@ -13,7 +13,12 @@ tensors; `is_first_p` selects the I-frame feature adaptor.
 Decompression is split into stages around the host rANS reads; the stream
 order (mv_z, mv_y0, mv_y1, z, y0, y1) is the JAX package's. The encoder
 (codec/engine.py) runs the same decompress stages as the decoder for every
-prior the stream depends on. Inference only.
+prior the stream depends on.
+
+`forward(..., training=True, noise=...)` is the training forward of
+vcm_ts_tpu/models/dmc.py:216-307: straight-through rounding, and bits of
+the latents plus U(-0.5, 0.5) noise. Every op on it is differentiable;
+the warps and subpel convs take their hand-written backward kernels.
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ import torch.nn as nn
 from ..entropy.bit_estimator import BitEstimator
 from ..ops.layers import (conv, enc_dec_models, hyper_enc_dec_models,
                           SubpelConv, to_nchw, to_nhwc)
-from ..ops.math import laplace_bits, lower_bound, probs_to_bits
+from ..ops.math import (add_uniform_noise, laplace_bits, lower_bound,
+                        probs_to_bits)
 from ..ops.resize import bilinear_down2
 from ..ops.warp import flow_warp, flow_warp_packed
 from ..ops.warp_twopass import flow_warp_twopass
@@ -187,11 +193,24 @@ class DMC(nn.Module):
         zc = to_nchw(z)
         return probs_to_bits(est(zc + 0.5) - est(zc - 0.5))
 
+    def noise_shapes(self, n: int, h: int, w: int):
+        """Shapes (NHWC) of the four noise tensors forward takes for an
+        (n, h, w) frame: y_res, mv_y_res, z, mv_z."""
+        return ((n, h // 16, w // 16, self.channel_M),
+                (n, h // 16, w // 16, self.channel_mv),
+                (n, h // 64, w // 64, self.channel_N),
+                (n, h // 64, w // 64, self.channel_N))
+
     # ---------------------------------------------------------------- forward
     def forward(self, x, dpb, mv_y_q_scale, y_q_scale,
-                is_first_p: bool = False):
-        """Per-frame forward with analytic bit costs (eval mode); x and the
-        DPB are NHWC."""
+                is_first_p: bool = False, training: bool = False,
+                noise=None):
+        """Per-frame forward with analytic bit costs; x and the DPB are
+        NHWC. `training` rounds with a straight-through gradient; `noise`
+        (training only) holds U(-0.5, 0.5) tensors for y_res, mv_y_res, z
+        and mv_z (noise_shapes; the order of the JAX package's key split),
+        and the bits are then those of the noisy values, else of the
+        rounded ones."""
         curr_mv_y_q = self.get_curr_mv_y_q(mv_y_q_scale)
         curr_y_q = self.get_curr_y_q(y_q_scale)
         xc = to_nchw(x)
@@ -199,12 +218,12 @@ class DMC(nn.Module):
         est_mv = self.optic_flow(xc, to_nchw(dpb["ref_frame"]))
         mv_y = to_nhwc(self.mv_encoder(est_mv) / curr_mv_y_q)
         mv_z = to_nhwc(self.mv_hyper_prior_encoder(to_nchw(mv_y)))
-        mv_z_hat = common.quant(mv_z)
+        mv_z_hat = common.quant(mv_z, training)
         mv_q_step, mv_scales, mv_means = self._mv_prior(
             mv_z_hat, dpb["ref_mv_y"])
         mv_res = common.forward_dual_prior(
             mv_y, mv_means, mv_scales, mv_q_step,
-            self._spatial(self.mv_y_spatial_prior))
+            self._spatial(self.mv_y_spatial_prior), training=training)
         mv_y_hat = mv_res.y_hat * to_nhwc(curr_mv_y_q)
 
         mv_hat = self.mv_decoder(to_nchw(mv_y_hat))
@@ -214,10 +233,11 @@ class DMC(nn.Module):
         y = to_nhwc(self.contextual_encoder(xc, context1, context2, context3)
                     / curr_y_q)
         z = to_nhwc(self.contextual_hyper_prior_encoder(to_nchw(y)))
-        z_hat = common.quant(z)
+        z_hat = common.quant(z, training)
         q_step, scales, means = self._y_prior(z_hat, context3, dpb["ref_y"])
         y_res = common.forward_dual_prior(
-            y, means, scales, q_step, self._spatial(self.y_spatial_prior))
+            y, means, scales, q_step, self._spatial(self.y_spatial_prior),
+            training=training)
         y_hat = y_res.y_hat * to_nhwc(curr_y_q)
 
         recon_feat = self.contextual_decoder(to_nchw(y_hat), context2,
@@ -231,10 +251,20 @@ class DMC(nn.Module):
         me_mse = torch.sum((x - to_nhwc(warp_frame)) ** 2,
                            dim=(1, 2, 3)) / pixel_num
 
-        bits_y = laplace_bits(y_res.y_q, y_res.scales_hat)
-        bits_mv_y = laplace_bits(mv_res.y_q, mv_res.scales_hat)
-        bits_z = self._z_bits(z_hat, self.bit_estimator_z)
-        bits_mv_z = self._z_bits(mv_z_hat, self.bit_estimator_z_mv)
+        if training and noise is not None:
+            n_y, n_mv_y, n_z, n_mv_z = noise
+            y_for_bit = add_uniform_noise(y_res.y_res, n_y)
+            mv_y_for_bit = add_uniform_noise(mv_res.y_res, n_mv_y)
+            z_for_bit = add_uniform_noise(z, n_z)
+            mv_z_for_bit = add_uniform_noise(mv_z, n_mv_z)
+        else:
+            y_for_bit, mv_y_for_bit = y_res.y_q, mv_res.y_q
+            z_for_bit, mv_z_for_bit = z_hat, mv_z_hat
+
+        bits_y = laplace_bits(y_for_bit, y_res.scales_hat)
+        bits_mv_y = laplace_bits(mv_y_for_bit, mv_res.scales_hat)
+        bits_z = self._z_bits(z_for_bit, self.bit_estimator_z)
+        bits_mv_z = self._z_bits(mv_z_for_bit, self.bit_estimator_z_mv)
 
         bpp_y = torch.sum(bits_y, dim=(1, 2, 3)) / pixel_num
         bpp_z = torch.sum(bits_z, dim=(1, 2, 3)) / pixel_num

@@ -5,9 +5,10 @@ state-dict names ("0", "conv1", "fc", ...), so the state dict that
 utils/weights.py makes from the JAX parameters loads with strict=True.
 
 `SubpelConv` always runs the JAX package's fast-shuffle configuration: its
-weights are permuted to k-major order once per load (cached), and the
-shuffle goes through kernel B (1x1 convs, fused) or kernel C (after a
-cuDNN 3x3 conv). The TPU-only conv lowerings of the JAX package
+weights are permuted to k-major order (once per load and cached, or every
+call while a gradient to them is recorded), and the shuffle goes through
+kernel B (1x1 convs, fused) or kernel C (after a cuDNN 3x3 conv). The
+TPU-only conv lowerings of the JAX package
 (`_conv_same_cout_padded`, `_conv_same_im2col_dot`) are plain convs here.
 """
 
@@ -67,9 +68,11 @@ def pixel_shuffle(x, r: int):
 
 class SubpelConv(nn.Module):
     """Conv + PixelShuffle upsampler; child conv "0" holds torch's c-major
-    weights, from which the k-major form is derived once and cached (keyed
-    on the weights' storage and version, so a reload or .to() refreshes
-    it)."""
+    weights, from which the k-major form is derived. Without a recorded
+    gradient it is derived once and cached (keyed on the weights' storage
+    and version, so a reload or .to() refreshes it); while autograd records
+    and the weights need a gradient, it is derived every call by the same
+    permutation, so the gradient reaches child "0"."""
 
     def __init__(self, cin: int, features: int, r: int = 2, kernel: int = 3):
         super().__init__()
@@ -77,24 +80,28 @@ class SubpelConv(nn.Module):
         self.add_module("0", conv(cin, features * r * r, kernel))
         self._kmajor = None
 
+    def _permute(self, w, b):
+        r, f = self.r, self.features
+        wp = permute_out_channels(w, r)
+        bp = permute_out_channels(b, r)
+        if self.kernel == 1:
+            cin = wp.shape[1]
+            wp = wp.reshape(r * r, f, cin).permute(0, 2, 1).contiguous()
+            return wp, bp.reshape(r * r, f).contiguous()
+        return wp.contiguous(memory_format=torch.channels_last), bp
+
     def kmajor_weights(self):
-        """(k-major weights, bias), derived once per load and cached."""
+        """(k-major weights, bias)."""
         c = self._modules["0"]
+        if torch.is_grad_enabled() and (c.weight.requires_grad
+                                        or c.bias.requires_grad):
+            return self._permute(c.weight, c.bias)
         key = (c.weight.data_ptr(), c.weight._version, c.bias.data_ptr(),
                c.bias._version, c.weight.dtype)
         if self._kmajor is None or self._kmajor[0] != key:
             with torch.no_grad():
-                r, f = self.r, self.features
-                wp = permute_out_channels(c.weight.detach(), r)
-                bp = permute_out_channels(c.bias.detach(), r)
-                if self.kernel == 1:
-                    cin = wp.shape[1]
-                    wp = wp.reshape(r * r, f, cin).permute(0, 2, 1)
-                    wp = wp.contiguous()
-                    bp = bp.reshape(r * r, f).contiguous()
-                else:
-                    wp = wp.contiguous(memory_format=torch.channels_last)
-            self._kmajor = (key, wp, bp)
+                self._kmajor = (key, *self._permute(c.weight.detach(),
+                                                    c.bias.detach()))
         return self._kmajor[1], self._kmajor[2]
 
     def forward(self, x):

@@ -13,6 +13,15 @@ On a CPU tensor the wrappers run the plain version; on a CUDA tensor they
 launch `csrc/warp.cu` (which rounds every op as the plain version does,
 so the two agree bit for bit) or raise. The kernel reads an f32 or bf16
 flow as it is; the coordinates are f32 in both versions.
+
+Gradients: while autograd records and an input needs a gradient, the warp
+runs as `_WarpFn`, whose backward is kernel A' (`csrc/warp_bwd.cu`) on the
+card and `warp_backward_plain` on the CPU. Both follow XLA's autodiff of
+the JAX gather exactly, including its clip rule: `jnp.clip` is
+max-then-min, whose gradient is 0.5 where the coordinate equals a bound
+(a zero flow at column 0 or W-1), where torch.clamp (and F.grid_sample)
+would give 1. So the plain backward is written out with index_add_, not
+taken from autograd through `warp_plain`.
 """
 
 from __future__ import annotations
@@ -101,12 +110,157 @@ def warp_cuda(ims, flow):
     return outs
 
 
-def _dispatch(ims, flow):
+def _clip_grad(v, hi: float):
+    """d clip(v, 0, hi) / dv as jnp.clip = minimum(maximum(v, 0), hi) gives
+    it: 1 inside, 0 outside, 0.5 from each bound that v equals."""
+    one, half, zero = (torch.full((), c, device=v.device) for c in
+                       (1.0, 0.5, 0.0))
+    lo = torch.where(v > 0, one, torch.where(v == 0, half, zero))
+    u = torch.clamp_min(v, 0.0)
+    return lo * torch.where(u < hi, one, torch.where(u == hi, half, zero))
+
+
+def warp_backward_plain(ims, flow, grads, need_im: bool = True):
+    """Plain version of kernel A': the warp's vector-Jacobian product.
+
+    grads[j] is the gradient of warp output j. Returns (d flow in the
+    flow's dtype, [d im_j in im_j's dtype, or None when not need_im]).
+    d im scatter-adds g times the four tap weights into the four taps
+    (f32 sums, cast once); d flow is g . d out / d(px, py) summed over
+    every channel of every tensor, times the clip's gradient (_clip_grad);
+    floor passes none. At x0 == W-1 the right tap is the edge pixel itself,
+    so its difference, and its share of d flow, is 0."""
+    n, _, h, w = flow.shape
+    f32, dev = torch.float32, flow.device
+    ys = torch.arange(h, dtype=f32, device=dev)[None, :, None]
+    xs = torch.arange(w, dtype=f32, device=dev)[None, None, :]
+    vx = xs + flow[:, 0].float()
+    vy = ys + flow[:, 1].float()
+    px = torch.clamp(vx, 0.0, w - 1.0)
+    py = torch.clamp(vy, 0.0, h - 1.0)
+    x0 = torch.floor(px)
+    y0 = torch.floor(py)
+    wx = (px - x0).reshape(-1, 1)
+    wy = (py - y0).reshape(-1, 1)
+    x0, y0 = x0.long(), y0.long()
+    x1 = torch.clamp(x0 + 1, max=w - 1)
+    y1 = torch.clamp(y0 + 1, max=h - 1)
+    base = (torch.arange(n, device=dev) * (h * w))[:, None, None]
+    taps = [(base + yy * w + xx).reshape(-1)
+            for yy, xx in ((y0, x0), (y0, x1), (y1, x0), (y1, x1))]
+    ox, oy = 1.0 - wx, 1.0 - wy
+    dwx = torch.zeros(n * h * w, dtype=f32, device=dev)
+    dwy = torch.zeros(n * h * w, dtype=f32, device=dev)
+    dims = []
+    for im, g in zip(ims, grads):
+        c = im.shape[1]
+        flat = im.permute(0, 2, 3, 1).reshape(-1, c)
+        v00, v01, v10, v11 = (flat[q].float() for q in taps)
+        gf = g.permute(0, 2, 3, 1).reshape(-1, c).float()
+        dtop = gf * oy
+        dbot = gf * wy
+        top = v00 * ox + v01 * wx
+        bot = v10 * ox + v11 * wx
+        dwx += (dtop * (v01 - v00) + dbot * (v11 - v10)).sum(1)
+        dwy += (gf * (bot - top)).sum(1)
+        if not need_im:
+            dims.append(None)
+            continue
+        d = torch.zeros((n * h * w, c), dtype=f32, device=dev)
+        for q, part in zip(taps, (dtop * ox, dtop * wx, dbot * ox,
+                                  dbot * wx)):
+            d.index_add_(0, q, part)
+        dims.append(d.to(im.dtype).reshape(n, h, w, c).permute(0, 3, 1, 2))
+    dflow = torch.stack((dwx.reshape(n, h, w) * _clip_grad(vx, w - 1.0),
+                         dwy.reshape(n, h, w) * _clip_grad(vy, h - 1.0)),
+                        dim=-1).to(flow.dtype)
+    return dflow.permute(0, 3, 1, 2), dims
+
+
+def warp_backward_cuda(ims, flow, grads, need_im: bool = True):
+    """Launch kernel A' on CUDA tensors (checks as warp_cuda; each grads[j]
+    shaped and typed as ims[j]). d im accumulates in f32 buffers through
+    atomics, in an order that changes from run to run, and is cast once to
+    the data's dtype; d flow is summed in a fixed order."""
+    n, two, h, w = flow.shape
+    if two != 2 or not nhwc_dense(flow):
+        raise ValueError("flow must be (N, 2, H, W) with NHWC memory")
+    if not 1 <= len(ims) <= MAX_TENSORS or len(grads) != len(ims):
+        raise ValueError(f"warp backward takes 1..{MAX_TENSORS} tensors and "
+                         "one gradient each")
+    dtype = ims[0].dtype
+    for im, g in zip(ims, grads):
+        for t in (im, g):
+            if t.device != flow.device or t.dtype != dtype:
+                raise ValueError("warp backward tensors must share the "
+                                 "flow's device and one dtype")
+            if (t.shape != im.shape or t.shape[0] != n
+                    or t.shape[2:] != (h, w) or not nhwc_dense(t)):
+                raise ValueError(f"warp backward tensor {tuple(t.shape)} / "
+                                 f"strides {t.stride()} is not NHWC-dense at "
+                                 "the flow's size")
+    code = cuda_build.dtype_code(ims[0])
+    if flow.dtype not in (torch.float32, torch.bfloat16):
+        flow = flow.float()
+    k = len(ims)
+    dims = [torch.zeros_like(im, dtype=torch.float32,
+                             memory_format=torch.channels_last)
+            if need_im else None for im in ims]
+    dflow = torch.empty_like(flow, memory_format=torch.channels_last)
+    src = (ctypes.c_void_p * k)(*[im.data_ptr() for im in ims])
+    grd = (ctypes.c_void_p * k)(*[g.data_ptr() for g in grads])
+    dst = (ctypes.c_void_p * k)(*[d.data_ptr() if need_im else 0
+                                  for d in dims])
+    chans = (ctypes.c_int * k)(*[im.shape[1] for im in ims])
+    rc = cuda_build.launcher("warp_bwd")(
+        src, grd, dst, chans, k, flow.data_ptr(), dflow.data_ptr(), n, h, w,
+        code, cuda_build.dtype_code(flow), int(need_im),
+        cuda_build.stream_ptr(flow))
+    cuda_build.check(rc, "warp_bwd")
+    cuda_build.count_launch("warp_bwd")
+    if need_im and dtype != torch.float32:
+        dims = [d.to(dtype) for d in dims]
+    return dflow, dims
+
+
+def _forward(ims, flow):
     if flow.device.type == "cpu":
         return warp_plain(ims, flow)
     if flow.device.type == "cuda":
         return warp_cuda(ims, flow)
     raise ValueError(f"warp has no version for device {flow.device}")
+
+
+class _WarpFn(torch.autograd.Function):
+    """The warp of `ims` by `flow` with kernel A' as its backward."""
+
+    @staticmethod
+    def forward(ctx, flow, *ims):
+        ctx.save_for_backward(flow, *ims)
+        return tuple(_forward(list(ims), flow))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        flow, *ims = ctx.saved_tensors
+        need_im = any(ctx.needs_input_grad[1:])
+        if flow.device.type == "cuda":
+            grads = [g.contiguous(memory_format=torch.channels_last)
+                     for g in grads]
+            dflow, dims = warp_backward_cuda(ims, flow, grads, need_im)
+        elif flow.device.type == "cpu":
+            dflow, dims = warp_backward_plain(ims, flow, grads, need_im)
+        else:
+            raise ValueError(f"warp has no backward for device {flow.device}")
+        dflow = dflow if ctx.needs_input_grad[0] else None
+        return (dflow, *[d if need else None for d, need in
+                         zip(dims, ctx.needs_input_grad[1:])])
+
+
+def _dispatch(ims, flow):
+    if torch.is_grad_enabled() and (flow.requires_grad
+                                    or any(im.requires_grad for im in ims)):
+        return list(_WarpFn.apply(flow, *ims))
+    return _forward(ims, flow)
 
 
 def flow_warp(im, flow):

@@ -16,7 +16,9 @@ Tensors are NCHW with NHWC memory (`torch.channels_last`); the flow is
 (N, 2, H, W), channel 0 horizontal, as in ops/warp.py. On a CPU tensor
 `flow_warp_twopass` runs the plain version; on a CUDA tensor it launches
 `csrc/warp_twopass.cu` (which rounds every op as the plain version does,
-so the two agree bit for bit) or raises.
+so the two agree bit for bit) or raises. It has no backward: the JAX
+package gives kernel D no VJP, and training runs the exact warp, so a
+warp that would record a gradient raises.
 """
 
 from __future__ import annotations
@@ -94,6 +96,11 @@ def warp_twopass_cuda(im, flow, max_disp: int):
 def flow_warp_twopass(im, flow, max_disp: int):
     """Two-pass backward warp of `im` (N, C, H, W) by `flow` (N, 2, H, W),
     each shift bounded by `max_disp` pixels."""
+    if torch.is_grad_enabled() and (im.requires_grad or flow.requires_grad):
+        raise RuntimeError(
+            "flow_warp_twopass (kernel D, fast_warp) has no backward: the "
+            "JAX package defines no VJP for its _warp_kernel; train with "
+            "fast_warp=False (the exact warp, kernels A and A')")
     if flow.device.type == "cpu":
         return warp_twopass_plain(im, flow, max_disp)
     if flow.device.type == "cuda":

@@ -1,8 +1,9 @@
 """Settings trees: a yacs-style `CfgNode` and the codec's default settings.
 
 The port's copy of vcm_ts_tpu/utils/config.py (`CfgNode`) and of
-`default_codec_settings` (vcm_ts_tpu/train/config.py), with the same keys
-and defaults. The GPU machines the port runs on need not have PyYAML, so
+`default_training_cfg` and `default_codec_settings`
+(vcm_ts_tpu/train/config.py), with the same keys and defaults. The GPU
+machines the port runs on need not have PyYAML, so
 the port reads and writes YAML itself. It knows the block-mapping subset
 the settings files use:
 - nested `KEY:` mappings by indentation, `# comments`;
@@ -327,6 +328,85 @@ def dump_yaml(tree: dict, indent: int = 0) -> str:
         else:
             out.append(f"{pad}{k}: {_dump_scalar(v)}")
     return "\n".join(out) + "\n"
+
+
+def default_training_cfg() -> CfgNode:
+    """The training settings tree (vcm_ts_tpu/train/config.py
+    default_training_cfg): same keys and defaults."""
+    cfg = CfgNode()
+
+    cfg.MODEL = CfgNode()
+    cfg.MODEL.ARCHITECTURE = "DCVC_HEM"
+    cfg.MODEL.DEVICE = "tpu"
+    cfg.MODEL.PRETRAINED_WEIGHTS = ""
+    cfg.MODEL.I_FRAME_PRETRAINED_WEIGHTS = ""
+    # [channel_mv, channel_N, channel_M]; the reference widths
+    cfg.MODEL.CHANNELS = [64, 64, 96]
+
+    cfg.INPUT = CfgNode()
+    cfg.INPUT.MAKE_DIVISIBLE_BY = 8
+    cfg.INPUT.IMAGE_SIZE = [256, 256]
+
+    cfg.DATASET = CfgNode()
+    cfg.DATASET.TYPE = ""
+    cfg.DATASET.TRAIN_ROOT_DIRS = []
+    cfg.DATASET.TRAIN_SUBDIR_LISTS = []
+    cfg.DATASET.TEST_ROOT_DIRS = []
+    cfg.DATASET.TEST_SUBDIR_LISTS = []
+    cfg.DATASET.TEST_OD_ROOT_DIRS = []
+    cfg.DATASET.SEQUENCE_LENGTH = 16
+    cfg.DATASET.SEQUENCE_STRIDE = 1
+    cfg.DATASET.SUBDIR_INPUTS = "raw"
+    cfg.DATASET.METADATA_PATH = ""
+    cfg.DATASET.OD_GOP_SIZE = 32
+    cfg.DATASET.OD_STAGE = 5
+
+    cfg.DATA_LOADER = CfgNode()
+    cfg.DATA_LOADER.NUM_WORKERS = 1
+    cfg.DATA_LOADER.PIN_MEMORY = True
+
+    cfg.SOLVER = CfgNode()
+    cfg.SOLVER.LAMBDAS = [85, 170, 380, 840]
+    cfg.SOLVER.PL_MODEL = "resnet"
+    cfg.SOLVER.PL_LAYERS = ["1", "2", "3", "4"]
+    cfg.SOLVER.PL_LAMBDA = 1e1
+    cfg.SOLVER.DIST_LAMBDA = 1.0
+    cfg.SOLVER.LR = 1e-4
+    # global-norm gradient clipping; 0 disables (the reference fine-tunes
+    # pretrained weights and never clips)
+    cfg.SOLVER.GRAD_CLIP_NORM = 0.0
+    cfg.SOLVER.DEBUG_NANS = False
+    # checkpoint each frame of a cascade chain (memory flat in p_frames)
+    cfg.SOLVER.CASCADE_REMAT = True
+    # bf16 compute with f32 master parameters and moments
+    cfg.SOLVER.MIXED_PRECISION = False
+    # gradient accumulation over G rate-anchor microbatches (divides
+    # len(LAMBDAS))
+    cfg.SOLVER.GRAD_ACCUM_STEPS = 1
+    # 8-field stage tuples:
+    # [p_frames, modules(me|rec|all), method(single|cascade),
+    #  loss_dist(me|rec), loss_rate(none|me|rec|all), lr, epochs,
+    #  perceptual_loss(true|false)]
+    cfg.SOLVER.STAGES = [
+        ["1", "me", "single", "me", "none", "0.0001", "1", "false"],
+        ["1", "me", "single", "me", "me", "0.0001", "3", "false"],
+        ["1", "rec", "single", "rec", "none", "0.0001", "3", "false"],
+        ["1", "rec", "single", "rec", "rec", "0.0001", "3", "false"],
+        ["1", "all", "single", "rec", "all", "0.0001", "6", "false"],
+        ["2", "all", "single", "rec", "all", "0.0001", "5", "false"],
+        ["4", "all", "single", "rec", "all", "0.0001", "3", "false"],
+        ["4", "all", "single", "rec", "all", "0.00001", "1", "false"],
+        ["4", "all", "cascade", "rec", "all", "0.00005", "2", "false"],
+        ["4", "all", "cascade", "rec", "all", "0.00001", "3", "false"],
+    ]
+
+    cfg.OUTPUT_DIR = "outputs/test"
+
+    cfg.TENSORBOARD = CfgNode()
+    cfg.TENSORBOARD.BEST_SAMPLES_NUM = 16
+    cfg.TENSORBOARD.WORST_SAMPLES_NUM = 16
+
+    return cfg
 
 
 def default_codec_settings() -> CfgNode:

@@ -11,6 +11,11 @@ in f32, and an f32 activation stays f32 through bf16 modules.
 Both casts work in place on the module's parameters and return the module.
 SubpelConv's k-major weight cache is keyed on the weights' storage and
 dtype, so it refreshes after a cast.
+
+Training's mixed precision (`cast_for_compute`, the port's copy of
+vcm_ts_tpu/train/train_step.py:57-72) does not cast in place: it returns
+bf16 copies of the f32 master parameters for torch.func.functional_call,
+made inside the loss, so that the gradients flow back into f32.
 """
 
 from __future__ import annotations
@@ -56,3 +61,18 @@ def cast_params_mixed(module: nn.Module,
         if p.dtype == torch.float32 and not keep & set(name.split(".")):
             p.data = p.data.to(torch.bfloat16)
     return module
+
+
+# Parameters that stay f32 in training's bf16 compute (a substring of the
+# dotted name): the factorized bit estimators' CDF layers shape
+# likelihoods through nested sigmoids, and they are tiny.
+MP_KEEP_F32 = ("bit_estimator",)
+
+
+def cast_for_compute(module: nn.Module, dtype: torch.dtype) -> dict:
+    """{name: parameter or its differentiable `dtype` copy} for
+    torch.func.functional_call: every f32 parameter whose name contains
+    none of MP_KEEP_F32 is cast; the masters are untouched."""
+    return {name: p.to(dtype) if p.dtype == torch.float32
+            and not any(k in name for k in MP_KEEP_F32) else p
+            for name, p in module.named_parameters()}
