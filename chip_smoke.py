@@ -53,14 +53,20 @@ result line):
 8. training (vcm_ts_tpu_torch/train): kernels A' (the warp's backward) and
    C' (k-major space-to-depth) against their plain versions, f32 and
    bf16, at the training step's shapes (256x256 crops, batch 4; A' under
-   an iid and a zero flow) and one 1088x1920 row each, beside the library
-   call (grid_sampler_2d_backward; pixel_unshuffle + the channel
-   permutation) and the cuBLAS products of kernel B's backward; a 64x64
-   cascade step of the seeded DMC on the CPU and on the card (loss,
-   gradients, parameters after AdamW); the port bench's --train-step in
-   f32, --mp and --grad-accum 2 (frames/s, peak memory); one cascade step
-   under the profiler (launches counted); and a gate that the loss on a
-   fixed 256x256 batch falls over 20 steps.
+   an iid, a smooth and a zero flow; two calls give the same d flow, and
+   whether d im repeats is printed; A''s time split into its d flow pass
+   alone, the f32 zero fill and the bf16 cast) and one 1088x1920 row
+   each, beside the library call
+   (grid_sampler_2d_backward; pixel_unshuffle + the channel permutation)
+   and the cuBLAS products of kernel B's backward; a 64x64 cascade step
+   of the seeded DMC on the CPU and on the card (loss, gradients,
+   parameters after AdamW); the port bench's --train-step in f32, --mp
+   and --grad-accum 2 (frames/s, peak memory); one cascade step under the
+   profiler (launches counted); whether two cascade
+   steps from one state give the same parameters bit for bit, also under
+   torch.use_deterministic_algorithms, and whether the bilinear flow
+   upsample's backward repeats (printed, not gates); and a gate that the
+   loss on a fixed 256x256 batch falls over 20 steps.
 
 The last three lines of standard output are the `kernels` JSON object, the
 nvidia-smi line, and then {"ok": true, "device": {...}}. A longer record
@@ -1406,20 +1412,22 @@ def _bf16_or_f32_tol(want, dtype, f32_rel):
 
 
 def check_warp_bwd(g):
-    """Kernel A' against warp_backward_plain, f32 and bf16, iid N(0, 8^2)
-    and zero flows; d flow within 1e-5 (fixed order) and d im within 1e-4
-    (f32 atomics, order changing run to run) of the largest magnitude in
-    f32, one bf16 ulp in bf16. Beside it aten's grid_sampler_2d_backward
-    (bilinear, border, align_corners=True: the same function up to the
-    clip's 0.5 at a bound) on the concatenated tensor."""
+    """Kernel A' against warp_backward_plain, f32 and bf16, iid N(0, 8^2),
+    smooth and zero flows; d flow within 1e-5 (fixed order) and d im
+    within 1e-4 (f32 atomics, order changing run to run) of the largest
+    magnitude in f32, one bf16 ulp in bf16. Two calls must give the same
+    d flow; whether they give the same d im is recorded. Beside it the
+    parts of a call: the kernel's d flow pass alone (need_im=False), the
+    wrapper's f32 zero fill of the d im buffers and, for bf16, their cast;
+    and aten's grid_sampler_2d_backward (bilinear, border,
+    align_corners=True: the same function up to the clip's 0.5 at a
+    bound) on the concatenated tensor."""
     from vcm_ts_tpu_torch.ops import warp as tw
 
     rows = []
     for name, chans, n, h, w in WARP_BWD_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            for kind in ("iid", "zero"):
-                if (h, w) == (H, W) and kind == "zero":
-                    continue
+            for kind in ("iid", "smooth", "zero"):
                 ims = [(torch.rand if c == 3 else torch.randn)(
                     (n, c, h, w), device="cuda", generator=g).to(
                         dtype=dtype, memory_format=CL) for c in chans]
@@ -1427,12 +1435,13 @@ def check_warp_bwd(g):
                                   generator=g).to(dtype=dtype,
                                                   memory_format=CL)
                       for c in chans]
-                flow = (torch.cat([make_flow("iid", h, w, g)
+                flow = (torch.cat([make_flow(kind, h, w, g)
                                    for _ in range(n)])
-                        if kind == "iid" else torch.zeros(
+                        if kind != "zero" else torch.zeros(
                             (n, 2, h, w), device="cuda")).to(
                     dtype=dtype, memory_format=CL)
                 dflow, dims = tw.warp_backward_cuda(ims, flow, gs)
+                again = tw.warp_backward_cuda(ims, flow, gs)
                 wflow, wims = tw.warp_backward_plain(ims, flow, gs)
                 err_f = float((dflow.float() - wflow.float()).abs().max())
                 err_i = max(float((a.float() - b.float()).abs().max())
@@ -1446,6 +1455,11 @@ def check_warp_bwd(g):
                     raise AssertionError(
                         f"warp_bwd {label}: d flow err {err_f} (tol "
                         f"{tol_f}), d im err {err_i} (tol {tol_i})")
+                if not torch.equal(dflow, again[0]):
+                    raise AssertionError(f"warp_bwd {label}: two calls on "
+                                         "the same inputs differ in d flow")
+                acc = [torch.zeros_like(im, dtype=torch.float32,
+                                        memory_format=CL) for im in ims]
                 cat = torch.cat(ims, 1) if len(ims) > 1 else ims[0]
                 gcat = torch.cat(gs, 1) if len(gs) > 1 else gs[0]
                 grid = torch.cat([_grid(flow[i:i + 1].float())
@@ -1461,6 +1475,15 @@ def check_warp_bwd(g):
                     max_abs_err=max(err_f, err_i),
                     err_dflow=err_f, tol_dflow=tol_f, err_dim=err_i,
                     tol_dim=tol_i, tol=max(tol_f, tol_i), **t,
+                    dim_repeats=all(torch.equal(a, b)
+                                    for a, b in zip(dims, again[1])),
+                    dflow_only_ms=graph_ms(lambda: tw.warp_backward_cuda(
+                        ims, flow, gs, False)),
+                    fill_ms=graph_ms(lambda: [
+                        torch.zeros_like(im, dtype=torch.float32,
+                                         memory_format=CL) for im in ims]),
+                    cast_ms=(graph_ms(lambda: [a.to(dtype) for a in acc])
+                             if dtype != torch.float32 else 0.0),
                     library="aten.grid_sampler_2d_backward(border, "
                             "align_corners=True)",
                     bound_ms=b, bound_by=by))
@@ -1595,6 +1618,63 @@ def train_reference():
             "loss_cuda": out["cuda"][0].loss.tolist()}
 
 
+def train_repeatable(seq):
+    """One cascade step of the seeded DMC from the same state, twice, with
+    the same noise: {"identical": all parameters equal bit for bit, the
+    count and names of the parameter tensors that differ}; the same pair
+    of steps under torch.use_deterministic_algorithms(True)
+    ("identical_deterministic_mode"), and whether the backward of
+    ops/resize.py's bilinear 2x upsample (SpyNet's flow upsampling; CUDA
+    adds its gradient with atomics) gives the same bits twice
+    ("upsample_backward_repeats")."""
+    import copy
+
+    from vcm_ts_tpu_torch.models.dmc import make_dpb
+    from vcm_ts_tpu_torch.ops.resize import bilinear_up2
+    from vcm_ts_tpu_torch.train import train_step as tts
+    from vcm_ts_tpu_torch.train.optimizer import make_stage_optimizer
+    from vcm_ts_tpu_torch.utils.weights import make_dmc
+
+    base = make_dmc("cuda")
+    noises = tts.draw_cascade_noise(
+        base, seq[1:], torch.Generator(device="cuda").manual_seed(3))
+
+    def two_steps():
+        params = []
+        for _ in range(2):
+            m = copy.deepcopy(base)
+            opt = make_stage_optimizer(m, "all", 1e-4)
+            step = tts.make_cascade_step(m, opt, _train_stage(),
+                                         lambdas=LAMBDAS, dist_lambda=1.0,
+                                         pl_lambda=0.0)
+            step(seq[1:], seq[1:], make_dpb(seq[0]), noises)
+            torch.cuda.synchronize()
+            params.append({k: p.detach().clone() for k, p in
+                           m.named_parameters()})
+        return [k for k in params[0] if not torch.equal(params[0][k],
+                                                         params[1][k])]
+
+    names = two_steps()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        names_det = two_steps()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    x = torch.randn((TN, 2, TH // 2, TW // 2), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(5))
+    gy = torch.randn((TN, 2, TH, TW), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(6))
+    grads = []
+    for _ in range(2):
+        xi = x.clone().requires_grad_()
+        bilinear_up2(xi).backward(gy)
+        grads.append(xi.grad)
+    return {"identical": not names, "differ": len(names),
+            "params": sum(1 for _ in base.parameters()), "names": names,
+            "identical_deterministic_mode": not names_det,
+            "upsample_backward_repeats": torch.equal(*grads)}
+
+
 def run_train_bench(label, argv):
     """The port bench's --train-step; every kernel of the training path
     launched (A, A', B, C, C'; not D)."""
@@ -1670,6 +1750,15 @@ def run_train(smi):
     ours = ", ".join(f"{k} {v['ms']:.3f} ms x{v['launches']}"
                      for k, v in p["port_kernels"].items())
     say(f"[train profile] port kernels: {ours}")
+    out["repeatable"] = train_repeatable(seq)
+    r = out["repeatable"]
+    say(f"[train] two cascade steps from one state (4x{TH}x{TW} f32, the "
+        f"same noise): parameters bit-identical: {r['identical']} "
+        f"({r['differ']} of {r['params']} tensors differ"
+        + (f", e.g. {r['names'][:5]}" if r["names"] else "")
+        + f"); under torch.use_deterministic_algorithms: "
+        f"{r['identical_deterministic_mode']}; bilinear_up2's backward "
+        f"twice gives the same bits: {r['upsample_backward_repeats']}")
 
     losses = []
     for _ in range(20):
@@ -1698,7 +1787,11 @@ def say_rows(rows):
         if r["name"] == "warp_bwd":
             extra += (f" (d flow err {r['err_dflow']:.3g} tol "
                       f"{r['tol_dflow']:.3g}; d im err {r['err_dim']:.3g} "
-                      f"tol {r['tol_dim']:.3g})")
+                      f"tol {r['tol_dim']:.3g}) parts: d flow pass alone "
+                      f"{r['dflow_only_ms']:.4f} ms, f32 fill "
+                      f"{r['fill_ms']:.4f} ms, cast {r['cast_ms']:.4f} ms;"
+                      f" two calls: same d flow, same d im "
+                      f"{r['dim_repeats']}")
         if "b_bwd_dx_ms" in r:
             extra += (f" kernel B backward cuBLAS f32 dx "
                       f"{r['b_bwd_dx_ms']:.4f} ms dw {r['b_bwd_dw_ms']:.4f}"

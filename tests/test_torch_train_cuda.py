@@ -8,11 +8,12 @@ skips without a card. Imports no JAX (run on the card with --noconftest):
     python -m pytest tests/test_torch_train_cuda.py -q -m cuda --noconftest
 
 Tolerances: C' is a permutation, bit-identical. A': d flow sums in a fixed
-order other than the plain version's, d im through f32 atomics in an order
-that changes from run to run (many taps collapse onto the border pixels
-under a flow that reaches past it): f32 within 1e-5 (d flow) and 1e-4
-(d im) of the largest magnitude; bf16 (both cast an f32 sum once) within
-one bf16 ulp of the largest magnitude. The train step: cuDNN's convs against
+order other than the plain version's (two calls give the same d flow), d
+im through f32 atomics in an order that changes from run to run (many
+taps collapse onto the border pixels under a flow that reaches past it,
+or onto one pixel under converging motion): f32 within 1e-5 (d flow) and
+1e-4 (d im) of the largest magnitude; bf16 (both cast an f32 sum once)
+within one bf16 ulp of the largest magnitude. The train step: cuDNN's convs against
 the CPU's, f32 without TF32: FrameAux rtol 1e-3, gradients (the optimizer's
 first moments) within 2e-2 of each leaf's largest magnitude.
 """
@@ -58,35 +59,111 @@ def _tol(want, dtype, f32_rel):
 
 
 def _flow(kind, n, h, w, g):
+    """iid N(0, 8^2); zero; beyond the border (N(0, (3 max(h, w))^2));
+    converge: every output onto one interior pixel (a third across, half
+    down, at a fraction), or onto the bottom-right corner: one segment of
+    h * w outputs a plane, longer than A''s chunk."""
     if kind == "zero":
         return torch.zeros((n, 2, h, w), device="cuda").contiguous(
             memory_format=CL)
+    if kind.startswith("converge"):
+        ty, tx = ((h - 1.0, w - 1.0) if kind == "converge_corner"
+                  else (h // 2 + 0.5, w // 3 + 0.25))
+        ys = torch.arange(h, device="cuda", dtype=torch.float32)
+        xs = torch.arange(w, device="cuda", dtype=torch.float32)
+        f = torch.stack([(tx - xs)[None, :].expand(h, w),
+                         (ty - ys)[:, None].expand(h, w)])
+        return f[None].repeat(n, 1, 1, 1).contiguous(memory_format=CL)
     std = 8.0 if kind == "iid" else 3.0 * max(h, w)
     return _randn((n, 2, h, w), g) * std
 
 
+def _check_warp_bwd(ims, flow, gs, need_im=True):
+    """A' against warp_backward_plain at the tolerances above; two calls
+    give the same d flow."""
+    dflow, dims = tw.warp_backward_cuda(ims, flow, gs, need_im)
+    assert torch.equal(dflow, tw.warp_backward_cuda(ims, flow, gs,
+                                                    need_im)[0])
+    wflow, wims = tw.warp_backward_plain(ims, flow, gs, need_im)
+    assert dflow.dtype == flow.dtype and dflow.shape == flow.shape
+    err = float((dflow.float() - wflow.float()).abs().max())
+    assert err <= _tol(wflow, ims[0].dtype, 1e-5), err
+    if not need_im:
+        assert dims == [None] * len(ims)
+        return dflow, dims
+    for d, wd in zip(dims, wims):
+        assert d.dtype == wd.dtype and d.shape == wd.shape
+        err = float((d.float() - wd.float()).abs().max())
+        assert err <= _tol(wd, ims[0].dtype, 1e-4), err
+    return dflow, dims
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["iid", "zero", "beyond"])
+@pytest.mark.parametrize("kind", ["iid", "zero", "beyond", "converge",
+                                  "converge_corner"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("chans", [(3,), (2,), (64,), (3, 64)])
 def test_warp_bwd_kernel_matches_plain(gen, chans, dtype, kind):
+    """Odd 37x61 planes, N = 2; with and without d im."""
     n, h, w = 2, 37, 61
     ims = [_randn((n, c, h, w), gen, dtype) for c in chans]
     gs = [_randn((n, c, h, w), gen, dtype) for c in chans]
     flow = _flow(kind, n, h, w, gen).to(dtype)
     for need_im in (True, False):
-        dflow, dims = tw.warp_backward_cuda(ims, flow, gs, need_im)
-        wflow, wims = tw.warp_backward_plain(ims, flow, gs, need_im)
-        assert dflow.dtype == flow.dtype and dflow.shape == flow.shape
-        err = float((dflow.float() - wflow.float()).abs().max())
-        assert err <= _tol(wflow, dtype, 1e-5), (need_im, err)
-        for d, wd in zip(dims, wims):
-            if not need_im:
-                assert d is None and wd is None
-                continue
-            assert d.dtype == dtype and d.is_contiguous(memory_format=CL)
-            err = float((d.float() - wd.float()).abs().max())
-            assert err <= _tol(wd, dtype, 1e-4), err
+        _, dims = _check_warp_bwd(ims, flow, gs, need_im)
+        for d in dims if need_im else ():
+            assert d.is_contiguous(memory_format=CL)
+
+
+def _at_offset(t, offset):
+    """t as an NHWC-dense view that starts `offset` elements into a larger
+    buffer (offset 1: its pointer is not 16-byte aligned)."""
+    n, c, h, w = t.shape
+    buf = torch.empty(t.numel() + offset, device=t.device, dtype=t.dtype)
+    v = buf[offset:].view(n, h, w, c).permute(0, 3, 1, 2)
+    v.copy_(t)
+    return v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chans", [(12,), (40,), (8, 3, 16), (6,)])
+def test_warp_bwd_units_and_alignment(gen, chans, dtype, offset):
+    """A tensor whose pixel row is a whole number of 16-byte units and
+    whose pointers are aligned is read in units (G lanes sized by the
+    widest tensor's units, some idle: 40 bf16 channels are 5 units of 8
+    lanes); any other goes channel by channel, also beside tensors read
+    in units. Both agree with the plain version, N = 2 at 21x33."""
+    n, h, w = 2, 21, 33
+    ims = [_at_offset(_randn((n, c, h, w), gen, dtype), offset)
+           for c in chans]
+    gs = [_at_offset(_randn((n, c, h, w), gen, dtype), offset)
+          for c in chans]
+    flow = _flow("iid", n, h, w, gen).to(dtype)
+    for need_im in (True, False):
+        _check_warp_bwd(ims, flow, gs, need_im)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w", [(37, 61), (96, 100)])
+def test_warp_bwd_planes_stay_apart(gen, dtype, h, w):
+    """N = 3 planes under a converging, a beyond-the-border and a zero
+    flow: taps never cross planes, each plane's d flow is the bits of that
+    plane alone, and d im agrees with the plain version."""
+    flow = torch.cat([_flow(k, 1, h, w, gen) for k in
+                      ("converge", "beyond", "zero")]).to(
+                          dtype=dtype, memory_format=CL)
+    ims = [_randn((3, c, h, w), gen, dtype) for c in (3, 64)]
+    gs = [_randn((3, c, h, w), gen, dtype) for c in (3, 64)]
+    dflow, _ = _check_warp_bwd(ims, flow, gs)
+    for i in range(3):
+        def row(t):
+            return t[i:i + 1].contiguous(memory_format=CL)
+        alone = tw.warp_backward_cuda([row(t) for t in ims], row(flow),
+                                      [row(t) for t in gs])
+        assert torch.equal(alone[0], row(dflow)), i
 
 
 @pytest.mark.cuda

@@ -6,7 +6,8 @@ kernels' plain versions against jax.vjp of the JAX package's functions.
 - kernel A' (`warp_backward_plain`, and the autograd path through
   `flow_warp` / `flow_warp_packed`) against jax.vjp of the exact warp,
   3 + 64 channels packed, under an iid N(0, 8^2) flow, a zero flow (jnp.clip's
-  0.5 at a bound), an integer flow and a flow beyond the border; f32,
+  0.5 at a bound), an integer flow, a flow beyond the border and a
+  converging one (every output onto one pixel); f32,
   rtol 1e-5 with an atol of 1e-5 of the largest magnitude (the sums run in
   other orders: XLA's scatter against index_add_);
 - kernel C' (`space_to_depth_plain`) equal to `_kmajor_space_to_depth`
@@ -125,13 +126,19 @@ def _flow(kind, n, h, w, rng):
         return np.zeros((n, h, w, 2), np.float32)
     if kind == "integer":
         return rng.integers(-3, 4, (n, h, w, 2)).astype(np.float32)
+    if kind == "converge":
+        # every output onto one interior pixel, at a fraction (so that all
+        # four taps take weight)
+        ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+        f = np.stack([w // 3 + 0.25 - xs, h // 2 + 0.5 - ys], -1)
+        return np.broadcast_to(f, (n, h, w, 2)).copy()
     # beyond the border: most samples clamp, some land exactly on it
     f = rng.normal(0, 3 * max(h, w), (n, h, w, 2)).astype(np.float32)
     f[:, ::3, ::2, 0] = -np.arange(w, dtype=np.float32)[::2]
     return f
 
 
-FLOWS = ("iid", "zero", "integer", "beyond")
+FLOWS = ("iid", "zero", "integer", "beyond", "converge")
 
 
 @pytest.mark.parametrize("kind", FLOWS)

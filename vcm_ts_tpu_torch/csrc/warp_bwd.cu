@@ -13,24 +13,41 @@
 //           x + u (or y + v) equals exactly; floor passes no gradient.
 // Coordinates are f32 for bf16 data too, as in the forward.
 //
-// What bounds it on H100: bytes. Per pixel it reads g and the four taps
-// of every channel (the taps mostly from L1/L2, as in the forward) and
-// adds four values per channel into d im. The adds are f32 atomics
-// (red.global.add): neighbouring pixels share taps, and a gather's adjoint
-// has no owner per output. Their order changes from run to run, so d im
-// is NOT deterministic: it agrees with the plain version (a sequential
-// index_add_) to f32 rounding of the sums. For bf16 data d im accumulates
-// in an f32 buffer that the wrapper casts once. d flow is deterministic:
-// each lane sums its channels in order, then a fixed shuffle tree.
+// What bounds it on H100: bytes in principle (g and the four taps of every
+// channel read, the taps mostly from L1/L2 as in the forward; four values
+// per channel added into d im), but the loads' instructions and latency in
+// practice: with one 4-byte load per lane and channel, the d flow sums
+// alone (need_im = 0) took most of the kernel's time. So a lane reads 16
+// bytes at a time: a tensor whose pixel row is a whole number of 16-byte
+// units (4 f32 or 8 bf16 channels) and whose pointers are 16-byte aligned
+// is read in those units, and its d im is added with float4 atomicAdd
+// (sm_90) into the f32 buffer; any other tensor (the 3-channel frame) goes
+// channel by channel. A group of G lanes (a power of two <= 32, inside one
+// warp) serves one pixel, G the widest tensor's count of units, so the
+// 64-channel feature of a packed call takes 16 lanes in f32 and 8 in
+// bf16, and the frame's three channels run on three of them. Once the
+// loads are wide, the atomics bound the kernel (the d flow pass alone
+// takes about half of its time at 1088x1920 on an H100), and of the
+// layouts tried the fastest adds were float4 atomics whose warp
+// instruction covers whole 16-byte slots of pixel rows side by side. In
+// f32 a lane's float4 is its own unit's; a bf16 unit holds two float4 of
+// d im per tap, which a per-warp stage in shared memory re-deals before
+// the adds (straight from the units they lie 32 bytes apart, and the bf16
+// call ran 1.3x slower than with scalar adds of one channel a lane).
+// Scalar atomics over 32 channels a pixel, staged the same way, were no
+// faster than one channel a lane.
 //
-// Design: a group of G lanes (a power of two <= 32, inside one warp) per
-// pixel; lane l takes channels l, l+G, ... of each tensor, so loads and
-// atomics of a group touch consecutive addresses. Every product is rounded
-// as in the plain version (__fmul_rn etc., no FMA contraction), so each
-// single contribution to d im equals the plain one bit for bit and only
-// the order of the sums differs. When no tensor needs d im the atomics
-// are skipped (need_im = 0): the SpyNet warps of a reference frame that
-// takes no gradient.
+// The adds into d im are f32 atomics: neighbouring pixels share taps, and
+// a gather's adjoint has no owner per output. Their order changes from run
+// to run, so d im is NOT deterministic: it agrees with the plain version
+// (a sequential index_add_) to f32 rounding of the sums. For bf16 data d
+// im accumulates in an f32 buffer that the wrapper casts once. d flow is
+// deterministic: each lane sums its channels in order, then a fixed
+// shuffle tree. Every product is rounded as in the plain version
+// (__fmul_rn etc., no FMA contraction), so each single contribution to d
+// im equals the plain one bit for bit and only the order of the sums
+// differs. When no tensor needs d im the atomics are skipped (need_im =
+// 0): the SpyNet warps of a reference frame that takes no gradient.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,6 +63,7 @@ struct BwdList {
   const void* grad[kMaxTensors];
   float* dsrc[kMaxTensors];  // f32 accumulators (null when need_im == 0)
   int c[kMaxTensors];
+  int vec[kMaxTensors];  // 1: channel by channel; else 16-byte units
   int n;
 };
 
@@ -62,6 +80,37 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
+// channels in a 16-byte unit
+template <typename T>
+struct Unit;
+template <>
+struct Unit<float> {
+  static constexpr int n = 4;
+};
+template <>
+struct Unit<__nv_bfloat16> {
+  static constexpr int n = 8;
+};
+
+// one 16-byte unit, read-only path, widened to f32 (bf16 -> f32 is exact)
+__device__ __forceinline__ void load_unit(const float* p, float (&v)[4]) {
+  const float4 u = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = u.x;
+  v[1] = u.y;
+  v[2] = u.z;
+  v[3] = u.w;
+}
+__device__ __forceinline__ void load_unit(const __nv_bfloat16* p,
+                                          float (&v)[8]) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
 // d clip(v, 0, hi) / dv, jnp.clip's rule: maximum(v, 0) then minimum(., hi),
 // each giving 0.5 at a tie.
 __device__ __forceinline__ float clip_grad(float v, float hi) {
@@ -70,17 +119,45 @@ __device__ __forceinline__ float clip_grad(float v, float hi) {
   return lo * (u < hi ? 1.0f : (u == hi ? 0.5f : 0.0f));
 }
 
-template <typename T, typename TF, int G>
+struct Taps {
+  float ox, wx, oy, wy;
+};
+
+// one channel: adds its share of d flow to (dwx, dwy) and returns its four
+// d im contributions, rounded as in the plain version
+__device__ __forceinline__ void channel(const Taps& t, float g, float v00,
+                                        float v01, float v10, float v11,
+                                        float& dwx, float& dwy, float& d00,
+                                        float& d01, float& d10, float& d11) {
+  const float dtop = __fmul_rn(g, t.oy);
+  const float dbot = __fmul_rn(g, t.wy);
+  const float top = __fadd_rn(__fmul_rn(v00, t.ox), __fmul_rn(v01, t.wx));
+  const float bot = __fadd_rn(__fmul_rn(v10, t.ox), __fmul_rn(v11, t.wx));
+  dwx = __fadd_rn(dwx, __fadd_rn(__fmul_rn(dtop, __fsub_rn(v01, v00)),
+                                 __fmul_rn(dbot, __fsub_rn(v11, v10))));
+  dwy = __fadd_rn(dwy, __fmul_rn(g, __fsub_rn(bot, top)));
+  d00 = __fmul_rn(dtop, t.ox);
+  d01 = __fmul_rn(dtop, t.wx);
+  d10 = __fmul_rn(dbot, t.ox);
+  d11 = __fmul_rn(dbot, t.wx);
+}
+
+// kUnits: some tensor is read in 16-byte units; without, the unit paths
+// are compiled out, so that channel-by-channel calls (SpyNet's 3-channel
+// levels) keep the registers and speed of a kernel without them
+template <typename T, typename TF, int G, bool kUnits>
 __global__ void __launch_bounds__(kThreads)
     warp_bwd_kernel(BwdList L, const TF* __restrict__ flow,
                     TF* __restrict__ dflow, int npix, int H, int W,
                     int need_im) {
+  constexpr int V = Unit<T>::n;
   const int lane = threadIdx.x % G;
   const int p0 = blockIdx.x * (kThreads / G) + threadIdx.x / G;
   const bool ok = p0 < npix;
   // out-of-range groups run on pixel npix-1 and store nothing, so that
   // every lane of the warp reaches the shuffles
   const int p = ok ? p0 : npix - 1;
+  const bool add = need_im && ok;
   const int hw = H * W;
   const int plane = (p / hw) * hw;
   const int y = (p - plane) / W;
@@ -100,37 +177,113 @@ __global__ void __launch_bounds__(kThreads)
   const long long t01 = plane + y0 * W + x1;
   const long long t10 = plane + y1 * W + x0;
   const long long t11 = plane + y1 * W + x1;
-  const float wx = __fsub_rn(px, fx0);
-  const float wy = __fsub_rn(py, fy0);
-  const float ox = __fsub_rn(1.0f, wx);
-  const float oy = __fsub_rn(1.0f, wy);
+  const long long taps[4] = {t00, t01, t10, t11};
+  Taps t;
+  t.wx = __fsub_rn(px, fx0);
+  t.wy = __fsub_rn(py, fy0);
+  t.ox = __fsub_rn(1.0f, t.wx);
+  t.oy = __fsub_rn(1.0f, t.wy);
 
   float dwx = 0.0f, dwy = 0.0f;
 #pragma unroll
   for (int j = 0; j < kMaxTensors; ++j) {
     if (j >= L.n) break;
-    const T* src = static_cast<const T*>(L.src[j]);
-    const T* grad = static_cast<const T*>(L.grad[j]);
-    float* dsrc = L.dsrc[j];
     const int c = L.c[j];
-    for (int k = lane; k < c; k += G) {
-      const float g = to_f(grad[(long long)p * c + k]);
-      const float v00 = to_f(src[t00 * c + k]);
-      const float v01 = to_f(src[t01 * c + k]);
-      const float v10 = to_f(src[t10 * c + k]);
-      const float v11 = to_f(src[t11 * c + k]);
-      const float dtop = __fmul_rn(g, oy);
-      const float dbot = __fmul_rn(g, wy);
-      const float top = __fadd_rn(__fmul_rn(v00, ox), __fmul_rn(v01, wx));
-      const float bot = __fadd_rn(__fmul_rn(v10, ox), __fmul_rn(v11, wx));
-      dwx = __fadd_rn(dwx, __fadd_rn(__fmul_rn(dtop, __fsub_rn(v01, v00)),
-                                     __fmul_rn(dbot, __fsub_rn(v11, v10))));
-      dwy = __fadd_rn(dwy, __fmul_rn(g, __fsub_rn(bot, top)));
-      if (need_im && ok) {
-        atomicAdd(dsrc + t00 * c + k, __fmul_rn(dtop, ox));
-        atomicAdd(dsrc + t01 * c + k, __fmul_rn(dtop, wx));
-        atomicAdd(dsrc + t10 * c + k, __fmul_rn(dbot, ox));
-        atomicAdd(dsrc + t11 * c + k, __fmul_rn(dbot, wx));
+    const T* src = static_cast<const T*>(L.src[j]);
+    const T* gp = static_cast<const T*>(L.grad[j]) + (long long)p * c;
+    const T* s00 = src + t00 * c;
+    const T* s01 = src + t01 * c;
+    const T* s10 = src + t10 * c;
+    const T* s11 = src + t11 * c;
+    float* dsrc = L.dsrc[j];
+    if (!kUnits || L.vec[j] == 1) {
+      for (int k = lane; k < c; k += G) {
+        float d00, d01, d10, d11;
+        channel(t, to_f(gp[k]), to_f(s00[k]), to_f(s01[k]), to_f(s10[k]),
+                to_f(s11[k]), dwx, dwy, d00, d01, d10, d11);
+        if (add) {
+          atomicAdd(dsrc + t00 * c + k, d00);
+          atomicAdd(dsrc + t01 * c + k, d01);
+          atomicAdd(dsrc + t10 * c + k, d10);
+          atomicAdd(dsrc + t11 * c + k, d11);
+        }
+      }
+      continue;
+    }
+    if constexpr (kUnits && V == 4) {
+      // f32: a lane's unit is one float4 of d im per tap, and the lanes of
+      // a pixel cover its row contiguously
+      for (int k = lane * V; k < c; k += G * V) {
+        float g[V], v00[V], v01[V], v10[V], v11[V];
+        load_unit(gp + k, g);
+        load_unit(s00 + k, v00);
+        load_unit(s01 + k, v01);
+        load_unit(s10 + k, v10);
+        load_unit(s11 + k, v11);
+        float d[4][V];
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          channel(t, g[i], v00[i], v01[i], v10[i], v11[i], dwx, dwy,
+                  d[0][i], d[1][i], d[2][i], d[3][i]);
+        }
+        if (add) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            atomicAdd(reinterpret_cast<float4*>(dsrc + taps[q] * c + k),
+                      make_float4(d[q][0], d[q][1], d[q][2], d[q][3]));
+          }
+        }
+      }
+    } else if constexpr (kUnits) {
+      // bf16: a lane's unit is two float4 of d im per tap, 32 bytes apart
+      // from the next lane's; a per-warp stage re-deals them so that each
+      // atomic instruction covers whole pixel rows contiguously
+      __shared__ __align__(16) float stage[kThreads / 32][32 * V];
+      float* buf = stage[threadIdx.x / 32];
+      const int wl = threadIdx.x % 32;
+      constexpr int kSlots = G * V / 4;  // float4 slots of a pixel a round
+      // every lane of the warp runs every round (the stage is the warp's)
+      for (int base = 0; base < c; base += G * V) {
+        const int k = base + lane * V;
+        float d[4][V] = {};
+        if (k < c) {
+          float g[V], v00[V], v01[V], v10[V], v11[V];
+          load_unit(gp + k, g);
+          load_unit(s00 + k, v00);
+          load_unit(s01 + k, v01);
+          load_unit(s10 + k, v10);
+          load_unit(s11 + k, v11);
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            channel(t, g[i], v00[i], v01[i], v10[i], v11[i], dwx, dwy,
+                    d[0][i], d[1][i], d[2][i], d[3][i]);
+          }
+        }
+        if (!need_im) continue;
+        const int m = min(G * V, c - base);  // channels of this round
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+#pragma unroll
+          for (int i = 0; i < V; i += 4) {
+            *reinterpret_cast<float4*>(buf + wl * V + i) =
+                make_float4(d[q][i], d[q][i + 1], d[q][i + 2], d[q][i + 3]);
+          }
+          __syncwarp();
+#pragma unroll
+          for (int r = 0; r < V / 4; ++r) {
+            const int slot = r * 32 + wl;
+            const int o = slot / kSlots;  // the warp's pixel it belongs to
+            const int u = slot % kSlots;
+            const long long tap = __shfl_sync(0xffffffffu, taps[q], o * G);
+            const int add_o = __shfl_sync(0xffffffffu, (int)add, o * G);
+            if (add_o && 4 * u < m) {
+              atomicAdd(reinterpret_cast<float4*>(dsrc + tap * c + base +
+                                                  4 * u),
+                        *reinterpret_cast<const float4*>(buf + 4 * slot));
+            }
+          }
+          __syncwarp();
+        }
       }
     }
   }
@@ -152,9 +305,17 @@ void launch_g(const BwdList& L, const void* flow, void* dflow, int npix,
               int H, int W, int need_im, cudaStream_t s) {
   constexpr int kPix = kThreads / G;
   const unsigned blocks = (unsigned)((npix + kPix - 1) / kPix);
-  warp_bwd_kernel<T, TF, G><<<blocks, kThreads, 0, s>>>(
-      L, static_cast<const TF*>(flow), static_cast<TF*>(dflow), npix, H, W,
-      need_im);
+  bool units = false;
+  for (int j = 0; j < L.n; ++j) units = units || L.vec[j] != 1;
+  if (units) {
+    warp_bwd_kernel<T, TF, G, true><<<blocks, kThreads, 0, s>>>(
+        L, static_cast<const TF*>(flow), static_cast<TF*>(dflow), npix, H,
+        W, need_im);
+  } else {
+    warp_bwd_kernel<T, TF, G, false><<<blocks, kThreads, 0, s>>>(
+        L, static_cast<const TF*>(flow), static_cast<TF*>(dflow), npix, H,
+        W, need_im);
+  }
 }
 
 template <typename T, typename TF>
@@ -169,6 +330,10 @@ cudaError_t launch(const BwdList& L, const void* flow, void* dflow, int npix,
     default: launch_g<T, TF, 32>(L, flow, dflow, npix, H, W, need_im, s);
   }
   return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
@@ -189,6 +354,7 @@ extern "C" int vcm_warp_bwd(const void* const* src, const void* const* grad,
   }
   const int npix = N * H * W;
   if (npix == 0) return 0;
+  const int per_unit = dtype == 0 ? 4 : 8;
   BwdList L = {};
   L.n = n_tensors;
   int widest = 1;
@@ -200,7 +366,12 @@ extern "C" int vcm_warp_bwd(const void* const* src, const void* const* grad,
     L.grad[j] = grad[j];
     L.dsrc[j] = need_im ? static_cast<float*>(dsrc[j]) : nullptr;
     L.c[j] = c[j];
-    widest = c[j] > widest ? c[j] : widest;
+    const bool units = c[j] % per_unit == 0 && aligned16(src[j]) &&
+                       aligned16(grad[j]) &&
+                       (!need_im || aligned16(dsrc[j]));
+    L.vec[j] = units ? per_unit : 1;
+    const int lanes = c[j] / L.vec[j];
+    widest = lanes > widest ? lanes : widest;
   }
   int g = 1;
   while (g < widest && g < 32) g *= 2;
