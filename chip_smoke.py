@@ -66,7 +66,30 @@ result line):
    steps from one state give the same parameters bit for bit, also under
    torch.use_deterministic_algorithms, and whether the bilinear flow
    upsample's backward repeats (printed, not gates); and a gate that the
-   loss on a fixed 256x256 batch falls over 20 steps.
+   loss on a fixed 256x256 batch falls over 20 steps;
+9. the codec eval harness at 1088x1920 (an 8-frame moving sequence written
+   with the port's PNG codec, the seeded damped IntraNoAR and DMC saved as
+   .pth, gop 4, 4 rate points): `vcm_ts_tpu_torch.test_video.main` with
+   real streams one rate point after another (launches counted), the same
+   with --batch_rates (every .bin and every frame's log equal to the
+   sequential run's), entropy-estimated; the decoding sweep's DCVC branch
+   (its bits equal the estimated harness's at every rate), benchmark_plot's
+   PSNR / MS-SSIM over its frames, bd_rate of the sweep's curve against
+   the harness's (and a curve against itself: 0); per rate point wall s,
+   I-frame and P-frame ms, bpp, PSNR, MS-SSIM; one rate point under the
+   profiler;
+10. the training loop: `python -m vcm_ts_tpu_torch.trainer`'s main over a
+   PNG tree of 256x256 tiles (8 train and 4 test sequences of 6 frames),
+   published widths, 4 anchors, stages me/single, rec/single and
+   all/cascade x2, eval and a checkpoint after each epoch (launches
+   counted); gates: stages in order, finite losses, eval metrics per
+   epoch, every checkpoint loads strict, and three runs resumed from the
+   cascade stage's first checkpoint repeat every iteration of the last
+   epoch within 10 times their largest gap to each other (at least 1e-3
+   relative: the card's steps are not deterministic), a limit under a
+   tenth of a resume with fresh moments; frames/s of the cascade stage after its
+   first epoch, the loader's wait share, eval and checkpoint seconds,
+   peak memory.
 
 The last three lines of standard output are the `kernels` JSON object, the
 nvidia-smi line, and then {"ok": true, "device": {...}}. A longer record
@@ -77,6 +100,7 @@ smoke_out/ in the repo). Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import shutil
@@ -1773,6 +1797,426 @@ def run_train(smi):
     return out
 
 
+# ------------------------------------------------------------------ phase 9
+EVAL_FRAMES, EVAL_GOP, EVAL_RATES = 8, 4, 4
+
+
+def _u8(frame):
+    """(1, H, W, 3) float [0, 1] tensor -> (H, W, 3) uint8."""
+    return (frame[0] * 255).round().clamp(0, 255).to(torch.uint8).numpy()
+
+
+def _frame_keys(log):
+    return {k: log[k] for k in ("frame_type", "frame_bpp", "frame_psnr",
+                                "frame_msssim")}
+
+
+def _harness(argv, timers=None):
+    """One run of vcm_ts_tpu_torch.test_video.main: (log, seconds)."""
+    from vcm_ts_tpu_torch import test_video
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    log = test_video.main(argv, timers=timers)
+    torch.cuda.synchronize()
+    return log, time.perf_counter() - t
+
+
+def run_eval(out_dir, smi):
+    """Phase 9: the codec eval harness at 1088x1920 (test_video.main: real
+    streams one rate point after another, the same batched over the rate
+    points, entropy-estimated), the decoding sweep's DCVC branch, BD
+    metrics and benchmark_plot's PSNR / MS-SSIM, with their gates."""
+    from vcm_ts_tpu_torch import bd_rate as bdr
+    from vcm_ts_tpu_torch import benchmark_plot as bp
+    from vcm_ts_tpu_torch import benchmark_videos_decoding as bvd
+    from vcm_ts_tpu_torch import test_video
+    from vcm_ts_tpu_torch.codec.png_io import PNGReader, write_png
+    from vcm_ts_tpu_torch.eval.bd_metrics import bd_psnr, bd_rate
+    from vcm_ts_tpu_torch.ops import cuda_build
+    from vcm_ts_tpu_torch.utils.weights import make_dmc, make_intra
+
+    t_phase = time.perf_counter()
+    j = os.path.join
+    root = j(out_dir, "eval")
+    shutil.rmtree(root, ignore_errors=True)
+    images = j(root, "data", "seq1088", "images")
+    os.makedirs(images)
+    for i, f in enumerate(moving_frames(EVAL_FRAMES, H, W, seed=9)):
+        write_png(j(images, f"im{i + 1:05d}.png"), _u8(f))
+    ckpt = {"i": j(root, "intra.pth"), "p": j(root, "dmc.pth")}
+    save_codec_pth(make_intra("cpu"), ckpt["i"])
+    save_codec_pth(make_dmc("cpu"), ckpt["p"])
+    with open(j(root, "test.json"), "w") as f:
+        json.dump({"root_path": j(root, "data"), "test_classes": {
+            "smoke": {"test": 1, "base_path": "seq1088", "sequences": {
+                "images": {"gop": EVAL_GOP, "frames": EVAL_FRAMES}}}}}, f)
+
+    def argv(name, *extra):
+        return ["--test_config", j(root, "test.json"), "--i_frame_model_path",
+                ckpt["i"], "--model_path", ckpt["p"], "--rate_num",
+                str(EVAL_RATES), "--output_path", j(root, f"{name}.json"),
+                "--stream_path", j(root, f"{name}_bin"), *extra]
+
+    out = {"frames": EVAL_FRAMES, "gop": EVAL_GOP, "rates": EVAL_RATES}
+    timers: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launches()
+    seq, out["seq_s"] = _harness(argv("seq", "--write_stream", "1"), timers)
+    out["launches"] = dict(cuda_build.LAUNCHES)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    missing = [k for k in ("warp", "subpel_conv1x1", "pixel_shuffle_relayout")
+               if not out["launches"][k] > 0]
+    if missing:
+        raise AssertionError(f"eval harness: {missing} not launched: "
+                             f"{out['launches']}")
+    seq = seq["smoke"]["images"]
+    bat, out["batched_s"] = _harness(argv("bat", "--write_stream", "1",
+                                          "--batch_rates", "1"))
+    bat = bat["smoke"]["images"]
+    est, out["estimated_s"] = _harness(argv("est"))
+    est = est["smoke"]["images"]
+
+    # gates: the batched run equals the sequential one, .bin for .bin
+    n_bins = 0
+    for r in range(EVAL_RATES):
+        k = f"{r:03d}"
+        if _frame_keys(bat[k]) != _frame_keys(seq[k]):
+            raise AssertionError(f"eval: batched log rate {r} differs: "
+                                 f"{_frame_keys(bat[k])} vs "
+                                 f"{_frame_keys(seq[k])}")
+        for fi in range(EVAL_FRAMES):
+            a, b = (open(j(root, f"{m}_bin", "images", str(r), f"{fi}.bin"),
+                         "rb").read() for m in ("seq", "bat"))
+            if a != b:
+                raise AssertionError(f"eval: rate {r} frame {fi}: batched "
+                                     ".bin differs from the sequential one")
+            n_bins += 1
+    out["bins_equal"] = n_bins
+    out["rate_points"] = []
+    for r in range(EVAL_RATES):
+        log = seq[f"{r:03d}"]
+        rep = timers[("smoke", "images", r)].report()
+        out["rate_points"].append({
+            "wall_s": log["decoded"], "i_frame_ms": rep["i_frame"]["mean_ms"],
+            "p_frame_ms": rep["p_frame"]["mean_ms"],
+            "bpp": log["ave_all_frame_bpp"], "psnr": log["ave_all_frame_psnr"],
+            "msssim": log["ave_all_frame_msssim"],
+            "estimated_bpp": est[f"{r:03d}"]["ave_all_frame_bpp"]})
+
+    # one rate point under the profiler (real streams)
+    task = {"frame_num": EVAL_FRAMES, "gop_size": EVAL_GOP,
+            "img_path": images, "write_stream": True,
+            "bin_folder": j(root, "profile_bin"),
+            "i_frame_q_scale": Q_ANCHORS[0], "p_frame_y_q_scale": Q_ANCHORS[0],
+            "p_frame_mv_y_q_scale": Q_ANCHORS[0]}
+    os.makedirs(task["bin_folder"])
+    ic, vc = test_video.build_codecs(test_video.parse_args(
+        argv("prof", "--write_stream", "1")))
+    out["profile"] = profile_ms(lambda: test_video.run_test(vc, ic, task))
+    del ic, vc
+
+    # the decoding sweep (DCVC branch), gop 4, 4 rates
+    sweep_cfg = {"dataset_dir": j(root, "data"), "gop": EVAL_GOP,
+                 "rate_count": EVAL_RATES, "out_dir": j(root, "decoded"),
+                 "codecs": {"DCVC-HEM": [{
+                     "name": "DCVC-HEM", "anchor_num": 4,
+                     "image_model_weights": ckpt["i"],
+                     "video_model_weights": ckpt["p"]}]}}
+    with open(j(root, "sweep.json"), "w") as f:
+        json.dump(sweep_cfg, f)
+    t = time.perf_counter()
+    bvd.main(["--config", j(root, "sweep.json")])
+    out["sweep_s"] = time.perf_counter() - t
+    for r in range(EVAL_RATES):
+        with open(j(root, "decoded", "DCVC-HEM", "seq1088",
+                    f"quality_{r}.json")) as f:
+            sw = json.load(f)
+        want = est[f"{r:03d}"]["frame_bpp"]
+        if sw["frame_bpp"] != want:
+            raise AssertionError(f"eval: sweep bits rate {r} "
+                                 f"{sw['frame_bpp']} != harness {want}")
+
+    # benchmark_plot's metrics over the sweep's output (no detector)
+    reader = PNGReader(images)
+    dataset = {"seq1088": {
+        "images": [reader.read_one_frame() for _ in range(EVAL_FRAMES)],
+        "annotations": {}, "classes": [], "class_names": [], "mean_ap": 0}}
+    t = time.perf_counter()
+    metrics = bp.get_metrics(j(root, "decoded"), {}, None, dataset, True, 1)
+    out["metrics_s"] = time.perf_counter() - t
+    sweep_curve = metrics["DCVC-HEM"]["seq1088"]
+    out["sweep_curve"] = [{k: e[k] for k in ("bpp", "psnr", "ssim")}
+                          for e in sweep_curve]
+
+    # BD metrics: the sweep's curve against the harness's, and a curve
+    # against itself (0)
+    harness_curve = [{"bpp": seq[f"{r:03d}"]["ave_all_frame_bpp"],
+                      "psnr": seq[f"{r:03d}"]["ave_all_frame_psnr"],
+                      "mean_ap": {}} for r in range(EVAL_RATES)]
+    curves = {"harness": {"seq1088": harness_curve},
+              "sweep": {"seq1088": sweep_curve},
+              "sweep copy": {"seq1088": sweep_curve}}
+    bdr.compute_bd(curves, "sweep", "pchip", root)
+    with open(j(root, "bd_metrics.txt")) as f:
+        out["bd_text"] = f.read()
+    rate = [e["bpp"] for e in sweep_curve]
+    psnr = [e["psnr"] for e in sweep_curve]
+    out["bd_self"] = (bd_rate(rate, psnr, rate, psnr),
+                      bd_psnr(rate, psnr, rate, psnr))
+    if not all(abs(v) <= 1e-6 for v in out["bd_self"]):
+        raise AssertionError(f"eval: BD of a curve against itself "
+                             f"{out['bd_self']}")
+    shutil.rmtree(root)  # about 150 MB of frames and streams
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def say_eval(v, smi):
+    tag = f"[eval] {v['frames']} frames {W}x{H} gop {v['gop']}"
+    for r, p in enumerate(v["rate_points"]):
+        say(f"{tag} rate {r}: wall {p['wall_s']:.3f} s, I-frame "
+            f"{p['i_frame_ms']:.1f} ms, P-frame {p['p_frame_ms']:.1f} ms "
+            f"(coded, decoded and measured), bpp {p['bpp']:.6f} (estimated "
+            f"{p['estimated_bpp']:.6f}), PSNR {p['psnr']:.4f} dB, MS-SSIM "
+            f"{p['msssim']:.6f} ({smi})")
+    p = v["profile"]
+    say(f"{tag} one rate point (write_stream) profiled: wall "
+        f"{p['wall_ms']:.1f} ms, device busy {p['device_busy_ms']:.1f} ms, "
+        f"device-busy share {1 - p['idle_share']:.3f}, {p['launches']} "
+        f"launches; top: " + ", ".join(
+            f"{k['name'][:60]} {k['ms']:.1f} ms x{k['launches']}"
+            for k in p["top_kernels"][:4]) + f" ({smi})")
+    say(f"{tag} runs: sequential write_stream {v['seq_s']:.1f} s (launches "
+        f"{v['launches']}, peak {v['peak_bytes'] / 2**30:.2f} GiB), batched "
+        f"{v['batched_s']:.1f} s, estimated {v['estimated_s']:.1f} s, sweep "
+        f"{v['sweep_s']:.1f} s, plot metrics {v['metrics_s']:.1f} s; "
+        f"{v['bins_equal']} batched .bin == sequential; sweep bits == "
+        f"harness (estimated) at every rate; BD self {v['bd_self']} "
+        f"(phase {v['phase_s']:.1f} s; {smi})")
+    say(f"{tag} sweep curve {v['sweep_curve']}; bd_metrics.txt: "
+        + " | ".join(line.strip() for line in v["bd_text"].splitlines()))
+
+
+# ----------------------------------------------------------------- phase 10
+LOOP_TRAIN, LOOP_TEST, LOOP_T = 8, 4, 6  # sequences, sequences, frames
+RESUMES, RESUME_SPREAD_X = 3, 10
+LOOP_STAGES = [["1", "me", "single", "me", "none", "0.0001", "1", "false"],
+               ["1", "rec", "single", "rec", "rec", "0.0001", "1", "false"],
+               ["2", "all", "cascade", "rec", "all", "0.0001", "2", "false"]]
+
+
+def _trainer(argv):
+    """One in-process run of python -m vcm_ts_tpu_torch.trainer: (its
+    record, seconds)."""
+    from vcm_ts_tpu_torch import trainer
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rec = trainer.main(argv)
+    torch.cuda.synchronize()
+    return rec, time.perf_counter() - t
+
+
+def _rel_diffs(got, want):
+    """Per iteration, the largest relative difference over the anchors."""
+    return [float(np.max(np.abs(np.subtract(g, w))
+                         / np.maximum(np.abs(w), 1e-12)))
+            for g, w in zip(got, want)]
+
+
+def _resume_fresh_moments(cfg_path, root):
+    """The resume of run_trainloop from model_epoch_002.pt, through
+    do_train with the optimizer's moments left fresh: its record."""
+    from vcm_ts_tpu_torch.data import make_data_loader
+    from vcm_ts_tpu_torch.models.dmc import DMC
+    from vcm_ts_tpu_torch.train.checkpoint import CheckPointer
+    from vcm_ts_tpu_torch.train.tensorboard import MetricWriter
+    from vcm_ts_tpu_torch.train.train_loop import do_train
+    from vcm_ts_tpu_torch.utils.config import default_training_cfg
+
+    cfg = default_training_cfg()
+    cfg.merge_from_file(cfg_path)
+    cfg.OUTPUT_DIR = os.path.join(root, "fresh_moments")
+    cfg.freeze()
+    model = DMC(device="cuda")
+    extra = CheckPointer().load(
+        model, path=os.path.join(root, "run", "model_epoch_002.pt"))
+    return do_train(cfg, model, make_data_loader(cfg, 0), None,
+                    start_epoch=int(extra["epoch"]), seed=0,
+                    writer=MetricWriter(cfg.OUTPUT_DIR, enable_tb=False))
+
+
+def run_trainloop(out_dir, smi):
+    """Phase 10: the trainer CLI over a PNG tree of 256x256 tiles with the
+    published widths (3 stages, 4 epochs, eval and a checkpoint after each),
+    then a resume from the cascade stage's first checkpoint, with gates."""
+    from vcm_ts_tpu_torch.codec.png_io import write_png
+    from vcm_ts_tpu_torch.models.dmc import DMC
+    from vcm_ts_tpu_torch.ops import cuda_build
+    from vcm_ts_tpu_torch.utils.weights import make_dmc
+
+    t_phase = time.perf_counter()
+    j = os.path.join
+    root = j(out_dir, "trainloop")
+    shutil.rmtree(root, ignore_errors=True)
+    for split, n, seed in (("train", LOOP_TRAIN, 20), ("test", LOOP_TEST, 40)):
+        for s in range(n):
+            d = j(root, split, "set", f"seq{s}", "raw")
+            os.makedirs(d)
+            for t, f in enumerate(moving_frames(LOOP_T, TH, TW,
+                                                seed=seed + s)):
+                write_png(j(d, f"{t:05d}.png"), _u8(f))
+    dmc_pth = j(root, "dmc.pth")
+    save_codec_pth(make_dmc("cpu"), dmc_pth)
+    stages = "\n".join(f"    - {json.dumps(s)}" for s in LOOP_STAGES)
+    cfg = j(root, "cfg.yaml")
+    with open(cfg, "w") as f:
+        f.write(f"""MODEL:
+  PRETRAINED_WEIGHTS: '{dmc_pth}'
+  CHANNELS: [64, 64, 96]
+DATASET:
+  TYPE: SequenceDataset
+  TRAIN_ROOT_DIRS: ['{j(root, "train")}']
+  TRAIN_SUBDIR_LISTS: ['']
+  TEST_ROOT_DIRS: ['{j(root, "test")}']
+  TEST_SUBDIR_LISTS: ['']
+  SEQUENCE_LENGTH: {LOOP_T}
+INPUT:
+  IMAGE_SIZE: [{TW}, {TH}]
+SOLVER:
+  LAMBDAS: [85, 170, 380, 840]
+  CASCADE_REMAT: true
+  STAGES:
+{stages}
+OUTPUT_DIR: '{j(root, "run")}'
+""")
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launches()
+    rec, out["run_s"] = _trainer(["--config-file", cfg])
+    out["launches"] = dict(cuda_build.LAUNCHES)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    missing = [k for k in ("warp", "warp_bwd", "subpel_conv1x1",
+                           "pixel_shuffle_relayout", "space_to_depth")
+               if not out["launches"][k] > 0]
+    if missing:
+        raise AssertionError(f"train loop: {missing} not launched: "
+                             f"{out['launches']}")
+    epochs = rec["epochs"]
+    out["epochs"] = epochs
+    entered = [e["stage"] for e in epochs]
+    if entered != [0, 1, 2, 2]:
+        raise AssertionError(f"train loop: stages {entered}")
+    losses = [v for it in rec["iterations"] for v in it["loss"]]
+    if not (losses and np.all(np.isfinite(losses))):
+        raise AssertionError(f"train loop: a loss is not finite: {losses}")
+    if not all(e.get("eval") and np.all(np.isfinite(e["eval"]["loss"]))
+               for e in epochs):
+        raise AssertionError("train loop: eval metrics missing for an epoch")
+    with open(j(root, "run", "metrics.jsonl")) as f:
+        eval_steps = {json.loads(line)["step"] for line in f
+                      if json.loads(line)["tag"] == "eval/loss/lambda_85.0"}
+    if len(eval_steps) != len(epochs):
+        raise AssertionError(f"train loop: eval metrics written at steps "
+                             f"{sorted(eval_steps)} for {len(epochs)} epochs")
+    for e in range(len(epochs)):
+        path = j(root, "run", f"model_epoch_{e:03d}.pt")
+        m = DMC(device="cpu")
+        m.load_state_dict(torch.load(path, weights_only=True)["params"],
+                          strict=True)
+    out["checkpoints"] = len(epochs)
+
+    # resume from the cascade stage's first epoch (mid-stage: the moments
+    # are restored) RESUMES times from the same checkpoint, and, as a
+    # control, once with fresh moments. The card's steps are not
+    # deterministic (A''s f32 atomics, bilinear_up2's backward), so two
+    # runs of one epoch from one state part in their last bits and the
+    # gap grows over the steps: the uninterrupted run's epoch is one more
+    # such run. Each resume is held at every iteration within
+    # RESUME_SPREAD_X times the resumes' largest gap to each other there
+    # (at least 1e-3 relative), a limit that must stay under a tenth of
+    # the fresh-moments control's difference.
+    def resumed(name):
+        d = j(root, name)
+        os.makedirs(d)
+        shutil.copy(j(root, "run", "model_epoch_002.pt"), d)
+        with open(j(d, "last_checkpoint.txt"), "w") as f:
+            f.write(j(d, "model_epoch_002.pt"))
+        rec_r, sec = _trainer(["--config-file", cfg, "OUTPUT_DIR", d])
+        return [it["loss"] for it in rec_r["iterations"]], sec
+
+    want = [it["loss"] for it in rec["iterations"] if it["epoch"] == 3]
+    runs = [resumed(f"resume{k}") for k in range(RESUMES)]
+    out["resume_s"] = runs[0][1]
+    if not want or any(len(r) != len(want) for r, _ in runs):
+        raise AssertionError(f"train loop resume: {[len(r) for r, _ in runs]}"
+                             f" iterations, want {len(want)}")
+    out["resume_rel_diff"] = [_rel_diffs(r, want) for r, _ in runs]
+    out["resume_spread"] = [max(x) for x in zip(*(
+        _rel_diffs(a[0], b[0]) for a, b in itertools.combinations(runs, 2)))]
+    out["fresh_moments_rel_diff"] = _rel_diffs(
+        [it["loss"] for it in _resume_fresh_moments(cfg, root)["iterations"]],
+        want)
+    out["resume_limit"] = [max(1e-3, RESUME_SPREAD_X * x)
+                           for x in out["resume_spread"]]
+    for i, lim in enumerate(out["resume_limit"]):
+        gaps = [d[i] for d in out["resume_rel_diff"]]
+        if not (max(gaps) <= lim
+                and lim <= 0.1 * out["fresh_moments_rel_diff"][i]):
+            raise AssertionError(
+                f"train loop resume, iteration {i}: relative differences "
+                f"{_g3(gaps)} to the uninterrupted run, limit {lim:.3g} (the "
+                f"resumes apart by up to {out['resume_spread'][i]:.3g}), "
+                f"fresh-moments control "
+                f"{out['fresh_moments_rel_diff'][i]:.3g}")
+
+    # the first cascade epoch pays the cascade step's warm-up
+    cascade = [e for e in epochs if e["stage"] == 2]
+    out["cascade_frames_per_s"] = (sum(e["frames"] for e in cascade[1:])
+                                   / sum(e["train_s"] for e in cascade[1:]))
+    out["cascade_first_frames_per_s"] = (cascade[0]["frames"]
+                                         / cascade[0]["train_s"])
+    out["loader_wait_share"] = (sum(e["loader_wait_s"] for e in epochs)
+                                / sum(e["train_s"] for e in epochs))
+    out["eval_s"] = sum(e["eval_s"] for e in epochs)
+    out["checkpoint_s"] = sum(e["checkpoint_s"] for e in epochs)
+    shutil.rmtree(root)  # tiles and checkpoints, about 200 MB
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def say_trainloop(v, bench_fps, smi):
+    tag = (f"[trainloop] {LOOP_TRAIN} train / {LOOP_TEST} test sequences of "
+           f"{LOOP_T} {TW}x{TH} tiles, 4 anchors, stages "
+           + " ".join("/".join(s[:3]) + f" x{s[6]}" for s in LOOP_STAGES))
+    say(f"{tag}: per epoch " + "; ".join(
+        f"epoch {e['epoch']} stage {e['stage']}: {e['frames']} frames in "
+        f"{e['train_s']:.2f} s (loader wait {e['loader_wait_s']:.3f} s), "
+        f"eval {e['eval_s']:.2f} s, checkpoint {e['checkpoint_s']:.2f} s, "
+        f"eval loss {[round(x, 3) for x in e['eval']['loss']]}"
+        for e in v["epochs"]) + f" ({smi})")
+    say(f"{tag}: cascade stage after its first epoch "
+        f"{v['cascade_frames_per_s']:.3f} frames/s (its first epoch "
+        f"{v['cascade_first_frames_per_s']:.3f}; eval {v['eval_s']:.2f} s "
+        f"and checkpoints {v['checkpoint_s']:.2f} s apart; the bench's "
+        f"--train-step f32 in this run {bench_fps} frames/s), loader wait "
+        f"share {v['loader_wait_share']:.4f}, peak "
+        f"{v['peak_bytes'] / 2**30:.2f} GiB, launches {v['launches']}; "
+        f"{v['checkpoints']} checkpoints load strict; {RESUMES} resumes from "
+        f"epoch 2's checkpoint: epoch 3's losses per iteration within "
+        f"{'; '.join(_g3(d) for d in v['resume_rel_diff'])} relative of the "
+        f"uninterrupted run's, the resumes apart by up to "
+        f"{_g3(v['resume_spread'])}, limits {_g3(v['resume_limit'])}; with "
+        f"fresh moments instead {_g3(v['fresh_moments_rel_diff'])}; run "
+        f"{v['run_s']:.1f} s, resume "
+        f"{v['resume_s']:.1f} s (phase {v['phase_s']:.1f} s; {smi})")
+
+
+def _g3(xs):
+    return "[" + ", ".join(f"{x:.3g}" for x in xs) + "]"
+
+
 def say_rows(rows):
     """One [kernel] line per kernel row."""
     for r in rows:
@@ -1906,11 +2350,23 @@ def main():
     train = run_train(smi)
     rows += train_rows
 
+    t = time.perf_counter()
+    evaluation = run_eval(out_dir, smi)
+    say_eval(evaluation, smi)
+    t_eval = time.perf_counter() - t
+    t = time.perf_counter()
+    loop = run_trainloop(out_dir, smi)
+    say_trainloop(loop, train["bench"][0]["value"], smi)
+    say(f"[phases 9-10] eval {t_eval:.1f} s, trainloop "
+        f"{time.perf_counter() - t:.1f} s; total so far "
+        f"{time.perf_counter() - t_start:.1f} s ({smi})")
+
     # one entry per kernel: its first (main-path) shape, and its launches
     # summed over the main paths: the two GOPs, the two batched serving
-    # runs, the warm VCM pipeline run and one cascade train step (each read
-    # with the counts reset just before it)
-    paths = gops + serving["batch"] + [vcm, train]
+    # runs, the warm VCM pipeline run, one cascade train step, the eval
+    # harness's sequential run and the trainer's run (each read with the
+    # counts reset just before it)
+    paths = gops + serving["batch"] + [vcm, train, evaluation, loop]
     kernels = []
     for name in ("warp", "warp_bwd", "subpel_conv1x1",
                  "pixel_shuffle_relayout", "space_to_depth", "warp_twopass"):
@@ -1927,8 +2383,8 @@ def main():
         json.dump({"device": smi, "kernel_rows": rows, "reference": ref,
                    "bench": benches, "gops": gops, "serving": serving,
                    "kernels_batched": batched, "vcm": vcm,
-                   "train": train, "kernels": kernels}, f,
-                  indent=1)
+                   "train": train, "eval": evaluation, "trainloop": loop,
+                   "kernels": kernels}, f, indent=1, default=float)
     say(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s "
         f"({smi})")
     print(json.dumps({"kernels": kernels}))

@@ -20,9 +20,14 @@ def _gaussian_kernel(win_size: int = 11, sigma: float = 1.5) -> np.ndarray:
 
 
 def _blur(x, kernel):
-    """Separable depthwise gaussian filter, VALID (NCHW)."""
+    """Separable depthwise gaussian filter, VALID (NCHW). An input smaller
+    than the window gives an empty output, as XLA's VALID conv does (the
+    JAX package's MS-SSIM is then NaN: five scales need 161 pixels)."""
     c = x.shape[1]
     win = kernel.shape[0]
+    if min(x.shape[2:]) < win:
+        n, _, h, w = x.shape
+        return x.new_empty((n, c, max(h - win + 1, 0), max(w - win + 1, 0)))
     x = F.conv2d(x, kernel.reshape(1, 1, win, 1).expand(c, 1, win, 1),
                  groups=c)
     return F.conv2d(x, kernel.reshape(1, 1, 1, win).expand(c, 1, 1, win),

@@ -94,6 +94,27 @@ class StageOptimizer:
         return [torch.where(keep, g, g / norm.to(g.dtype)
                             * self.grad_clip_norm) for g in grads]
 
+    def state_dict(self) -> dict:
+        """The step count and both moments, on the CPU (a checkpoint's
+        "opt_state")."""
+        def host(d):
+            return {n: t.detach().cpu().clone() for n, t in d.items()}
+
+        return {"count": self.count, "mu": host(self.mu), "nu": host(self.nu)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Restore state_dict(); the trainable parameters must be the same
+        (a stage with another mask raises ValueError)."""
+        if set(state["mu"]) != set(self.mu) or set(state["nu"]) != set(
+                self.nu):
+            raise ValueError("optimizer state is for other trainable "
+                             "parameters than this stage's")
+        for n in self.mu:
+            self.mu[n].copy_(state["mu"][n])
+            self.nu[n].copy_(state["nu"][n])
+        self.count = int(state["count"])
+
     @torch.no_grad()
     def step(self, grads: dict) -> None:
         """One update from grads[name] (a tensor, or None for no gradient:

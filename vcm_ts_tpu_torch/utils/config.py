@@ -10,9 +10,12 @@ the settings files use:
 - scalars resolved as PyYAML's YAML 1.1 resolver resolves them: null,
   bools (true/yes/on/...), ints (decimal, 0x, 0b, 0 octal), floats that
   have a dot or are .inf/.nan, '...' and "..." strings, bare strings;
-- one-line flow sequences of such scalars (`[1, 'a']`).
-Anything else (anchors, block sequences, multi-line scalars) raises.
-`dump()` writes block YAML that PyYAML reads back to the same tree.
+- flow sequences of such scalars (`[1, 'a']`), and lists of them: a flow
+  sequence of flow sequences, on one line or over several (the training
+  template's STAGES), or a block sequence whose items are flow sequences
+  (`- ['1', me, ...]`, as PyYAML's dump writes a list of lists).
+Anything else (anchors, block sequences of scalars, multi-line scalars)
+raises. `dump()` writes block YAML that PyYAML reads back to the same tree.
 """
 
 from __future__ import annotations
@@ -215,7 +218,9 @@ def _scalar(s: str):
 
 
 def _split_flow(body: str) -> list:
-    items, cur, quote = [], "", None
+    """The items of a flow sequence's body, split at its top-level commas
+    (an item may itself be a flow sequence of scalars)."""
+    items, cur, quote, depth = [], "", None, 0
     for ch in body:
         if quote:
             cur += ch
@@ -224,9 +229,15 @@ def _split_flow(body: str) -> list:
         elif ch in "'\"":
             quote = ch
             cur += ch
-        elif ch == ",":
+        elif ch == "," and depth == 0:
             items.append(cur)
             cur = ""
+        elif ch == "[" and depth == 0 and not cur.strip():
+            depth = 1
+            cur += ch
+        elif ch == "]" and depth == 1:
+            depth = 0
+            cur += ch
         elif ch in "[]{}":
             raise ValueError(f"unsupported nested flow YAML: [{body}]")
         else:
@@ -236,11 +247,31 @@ def _split_flow(body: str) -> list:
     return items
 
 
-def _value(s: str):
+def _value(s: str, nested: bool = True):
     s = s.strip()
     if s.startswith("[") and s.endswith("]"):
-        return [_scalar(v) for v in _split_flow(s[1:-1])]
+        items = [v.strip() for v in _split_flow(s[1:-1])]
+        if any(v.startswith("[") for v in items) and not nested:
+            raise ValueError(f"unsupported nested flow YAML: {s}")
+        return [_value(v, nested=False) if v.startswith("[") else _scalar(v)
+                for v in items]
     return _scalar(s)
+
+
+def _open_brackets(s: str) -> int:
+    """'[' minus ']' outside quotes."""
+    depth, quote = 0, None
+    for ch in s:
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "[":
+            depth += 1
+        elif ch == "]":
+            depth -= 1
+    return depth
 
 
 def load_yaml(text: str):
@@ -248,17 +279,44 @@ def load_yaml(text: str):
     root: dict = {}
     stack = [(-1, root)]  # (indent of the mapping's keys, mapping)
     pending = None  # (indent, parent dict, key) of a `KEY:` with no value
-    for n, raw in enumerate(text.splitlines(), 1):
+    seq = None  # (indent of the key, its list) of a block sequence
+    lines = iter(enumerate(text.splitlines(), 1))
+    for n, raw in lines:
         line = _strip_comment(raw).rstrip()
         if not line.strip():
             continue
         if "\t" in line[:len(line) - len(line.lstrip())]:
             raise ValueError(f"line {n}: tab indentation")
         indent = len(line) - len(line.lstrip(" "))
-        m = _KEY_RE.match(line.strip())
+        body = line.strip()
+        if body.startswith("- "):
+            item = body[2:].strip()
+            if pending is not None and indent >= pending[0]:
+                p_indent, p_parent, p_key = pending
+                seq = (p_indent, [])
+                p_parent[p_key] = seq[1]
+                pending = None
+            if (seq is None or indent < seq[0] or not item.startswith("[")
+                    or not item.endswith("]")):
+                raise ValueError(f"line {n}: unsupported YAML: {raw.strip()}")
+            try:
+                seq[1].append(_value(item, nested=False))
+            except ValueError as e:
+                raise ValueError(f"line {n}: {e}") from None
+            continue
+        seq = None
+        m = _KEY_RE.match(body)
         if not m:
             raise ValueError(f"line {n}: unsupported YAML: {raw.strip()}")
         key, rest = m.group(1), m.group(2)
+        while rest and rest.lstrip().startswith("[") and _open_brackets(
+                rest) > 0:
+            try:
+                _, more = next(lines)
+            except StopIteration:
+                raise ValueError(f"line {n}: unterminated flow sequence") \
+                    from None
+            rest += " " + _strip_comment(more).strip()
         if pending is not None:
             p_indent, p_parent, p_key = pending
             if indent > p_indent:
@@ -311,7 +369,8 @@ def _dump_scalar(v) -> str:
 
 
 def dump_yaml(tree: dict, indent: int = 0) -> str:
-    """Nested dicts of scalars and flat lists -> block YAML, keys sorted."""
+    """Nested dicts of scalars, flat lists and lists of flat lists -> block
+    YAML, keys sorted."""
     out = []
     pad = " " * indent
     for k in sorted(tree):
@@ -321,10 +380,20 @@ def dump_yaml(tree: dict, indent: int = 0) -> str:
             if v:
                 out.append(dump_yaml(v, indent + 2).rstrip("\n"))
         elif isinstance(v, (list, tuple)):
-            if any(isinstance(x, (list, tuple, dict)) for x in v):
-                raise TypeError(f"{k}: nested sequences are not supported")
-            out.append(f"{pad}{k}: [" + ", ".join(_dump_scalar(x) for x in v)
-                       + "]")
+            if any(isinstance(x, dict) for x in v) or any(
+                    isinstance(y, (list, tuple, dict)) for x in v
+                    if isinstance(x, (list, tuple)) for y in x):
+                raise TypeError(f"{k}: only lists of scalars, or lists of "
+                                "such lists, are supported")
+            if v and all(isinstance(x, (list, tuple)) for x in v):
+                out.append(f"{pad}{k}:")
+                out.extend(f"{pad}- [" + ", ".join(map(_dump_scalar, x))
+                           + "]" for x in v)
+            elif any(isinstance(x, (list, tuple)) for x in v):
+                raise TypeError(f"{k}: mixed scalars and lists")
+            else:
+                out.append(f"{pad}{k}: [" + ", ".join(map(_dump_scalar, v))
+                           + "]")
         else:
             out.append(f"{pad}{k}: {_dump_scalar(v)}")
     return "\n".join(out) + "\n"

@@ -120,12 +120,18 @@ def load_torch_state_dict(ckpt_path: str) -> dict:
             torch.as_tensor(v) for k, v in ckpt.items()}
 
 
+JAX_CKPT_ROUTE = (
+    "the JAX package's training checkpoints (.ckpt) are flax msgpack, "
+    "which the port does not read: export the parameters on a machine "
+    "with JAX through vcm_ts_tpu/utils/weight_export.py "
+    "save_torch_state_dict(params, 'model.pth') and load that .pth")
+
+
 def require_pth(path: str) -> None:
     if not path.endswith(".pth"):
         raise NotImplementedError(
-            f"{path}: the port loads reference .pth checkpoints; the JAX "
-            "package's own checkpoints (train/checkpoint.CheckPointer) wait "
-            "for the port's training slice")
+            f"{path}: the port loads reference .pth checkpoints here; "
+            + JAX_CKPT_ROUTE)
 
 
 def load_codec_weights(model: nn.Module, path: str) -> nn.Module:
