@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: kernels, bench, GOPs,
-serving, the VCM pipeline, training.
+serving, the VCM pipeline, training, the eval harness and the training
+loop, the perceptual losses and the Faster-RCNN eval detector.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -89,7 +90,24 @@ result line):
    relative: the card's steps are not deterministic), a limit under a
    tenth of a resume with fresh moments; frames/s of the cascade stage after its
    first epoch, the loader's wait share, eval and checkpoint seconds,
-   peak memory.
+   peak memory;
+11. the perceptual losses and the Faster-RCNN eval detector (seeded
+   weights: no checkpoint of theirs ships): (a) the ResNet-50, FPN and
+   YOLOv8m losses on the card against the CPU at the train step's shape
+   (4x256x256) and at 1088x1920 (value rtol 1e-4; d decoded in float64 on
+   both devices within 1e-3 of the largest, and the card's f32 d decoded
+   within 2e-2 of its float64 one in the 2-norm), ms per call forward and
+   forward + backward; (b) phase 8's cascade step with the ResNet loss:
+   the 64x64 step card against CPU (phase 8's gate), wall, device-busy,
+   launches, the port kernels' launches and peak memory beside phase 8's
+   step, and the loss falling over 20 steps; (c) the trainer CLI over
+   phase 10's tree with one all/cascade stage marked perceptual
+   (frames/s, p_dist > 0); (d) the detector through build_eval_adapter
+   on phase 9's 1088x1920 frames: its networks on the card against the
+   CPU (within 1e-3 of each output's largest), the two devices'
+   detections side by side, ms per frame by stage (backbone, host
+   proposals, RoIAlign, box head, host post-processing), pulls per frame,
+   and benchmark_plot's rcnn branch over the frames.
 
 The last three lines of standard output are the `kernels` JSON object, the
 nvidia-smi line, and then {"ok": true, "device": {...}}. A longer record
@@ -100,6 +118,7 @@ smoke_out/ in the repo). Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import copy
 import itertools
 import json
 import os
@@ -1560,14 +1579,14 @@ def check_space_to_depth(g):
     return rows
 
 
-def _train_stage(p_frames=2):
+def _train_stage(p_frames=2, perceptual=False):
     from vcm_ts_tpu_torch.train.stages import StageParams
 
     return StageParams(stage=0, p_frames=p_frames, trainable_mode="all",
                        forward_method="cascade", loss_dist_key="mse",
                        loss_rate_keys=("bpp_y", "bpp_z", "bpp_mv_y",
                                        "bpp_mv_z"), lr=1e-4,
-                       perceptual_loss=False)
+                       perceptual_loss=perceptual)
 
 
 LAMBDAS = [85.0, 170.0, 380.0, 840.0]
@@ -1581,9 +1600,10 @@ def _train_batch(h, w, p_frames=2, seed=0):
                         for t in range(p_frames + 1)])
 
 
-def train_reference():
+def train_reference(pl_kind=None):
     """One cascade step (p_frames 2, remat) of the seeded DMC at 64x64 on
-    the CPU (plain versions) and on the card (kernels), the same noise:
+    the CPU (plain versions) and on the card (kernels), the same noise
+    (with pl_kind, the SOLVER.PL_MODEL perceptual loss, seeded, in it):
     FrameAux rtol 1e-3 (cuDNN's and the CPU's f32 convs sum in other
     orders, TF32 off); gradients (the first moments) within 2e-2 of each
     leaf's largest magnitude; parameters after AdamW within 1e-6 + 0.05 lr
@@ -1605,8 +1625,11 @@ def train_reference():
     for dev in ("cpu", "cuda"):
         m = copy.deepcopy(model).to(dev)
         opt = make_stage_optimizer(m, "all", lr)
-        step = tts.make_cascade_step(m, opt, _train_stage(), lambdas=LAMBDAS,
-                                     dist_lambda=1.0, pl_lambda=0.0)
+        step = tts.make_cascade_step(
+            m, opt, _train_stage(perceptual=pl_kind is not None),
+            lambdas=LAMBDAS, dist_lambda=1.0,
+            **({"pl_lambda": 0.0} if pl_kind is None
+               else _pl_step_kwargs(pl_kind, dev)))
         xs = seq[1:].to(dev)
         aux, _ = step(xs, xs, make_dpb(seq[0].to(dev)),
                       [tuple(t.to(dev) for t in n) for n in noises])
@@ -2047,18 +2070,15 @@ def _resume_fresh_moments(cfg_path, root):
                     writer=MetricWriter(cfg.OUTPUT_DIR, enable_tb=False))
 
 
-def run_trainloop(out_dir, smi):
-    """Phase 10: the trainer CLI over a PNG tree of 256x256 tiles with the
-    published widths (3 stages, 4 epochs, eval and a checkpoint after each),
-    then a resume from the cascade stage's first checkpoint, with gates."""
+def write_loop_tree(root, stages):
+    """A fresh PNG tree of LOOP_TRAIN train and LOOP_TEST test sequences of
+    LOOP_T 256x256 tiles under `root`, the seeded damped DMC as a .pth and
+    the trainer's YAML for `stages` (published widths, 4 anchors, remat);
+    returns the YAML's path."""
     from vcm_ts_tpu_torch.codec.png_io import write_png
-    from vcm_ts_tpu_torch.models.dmc import DMC
-    from vcm_ts_tpu_torch.ops import cuda_build
     from vcm_ts_tpu_torch.utils.weights import make_dmc
 
-    t_phase = time.perf_counter()
     j = os.path.join
-    root = j(out_dir, "trainloop")
     shutil.rmtree(root, ignore_errors=True)
     for split, n, seed in (("train", LOOP_TRAIN, 20), ("test", LOOP_TEST, 40)):
         for s in range(n):
@@ -2069,7 +2089,7 @@ def run_trainloop(out_dir, smi):
                 write_png(j(d, f"{t:05d}.png"), _u8(f))
     dmc_pth = j(root, "dmc.pth")
     save_codec_pth(make_dmc("cpu"), dmc_pth)
-    stages = "\n".join(f"    - {json.dumps(s)}" for s in LOOP_STAGES)
+    lines = "\n".join(f"    - {json.dumps(s)}" for s in stages)
     cfg = j(root, "cfg.yaml")
     with open(cfg, "w") as f:
         f.write(f"""MODEL:
@@ -2088,9 +2108,23 @@ SOLVER:
   LAMBDAS: [85, 170, 380, 840]
   CASCADE_REMAT: true
   STAGES:
-{stages}
+{lines}
 OUTPUT_DIR: '{j(root, "run")}'
 """)
+    return cfg
+
+
+def run_trainloop(out_dir, smi):
+    """Phase 10: the trainer CLI over a PNG tree of 256x256 tiles with the
+    published widths (3 stages, 4 epochs, eval and a checkpoint after each),
+    then a resume from the cascade stage's first checkpoint, with gates."""
+    from vcm_ts_tpu_torch.models.dmc import DMC
+    from vcm_ts_tpu_torch.ops import cuda_build
+
+    t_phase = time.perf_counter()
+    j = os.path.join
+    root = j(out_dir, "trainloop")
+    cfg = write_loop_tree(root, LOOP_STAGES)
     out = {}
     torch.cuda.reset_peak_memory_stats()
     cuda_build.reset_launches()
@@ -2211,6 +2245,397 @@ def say_trainloop(v, bench_fps, smi):
         f"fresh moments instead {_g3(v['fresh_moments_rel_diff'])}; run "
         f"{v['run_s']:.1f} s, resume "
         f"{v['resume_s']:.1f} s (phase {v['phase_s']:.1f} s; {smi})")
+
+
+# ----------------------------------------------------------------- phase 11
+PL_KINDS = ("resnet", "fpn", "yolo")
+PL_STAGES = [["2", "all", "cascade", "rec", "all", "0.0001", "2", "true"]]
+PL_GATE_STEPS = 20
+RCNN_SCORE_GAIN = 8.0  # the seeded detector's class-score weights, scaled
+
+
+def _pl_step_kwargs(kind, device):
+    """make_cascade_step's perceptual arguments: the seeded SOLVER.PL_MODEL
+    loss (no weights file ships) and the default PL_LAMBDA."""
+    from vcm_ts_tpu_torch.train.losses import get_perceptual_loss
+    from vcm_ts_tpu_torch.utils.config import default_training_cfg
+
+    cfg = default_training_cfg()
+    cfg.SOLVER.PL_MODEL = kind
+    return {"pl_fn": get_perceptual_loss(cfg, device, seed=0),
+            "pl_lambda": float(cfg.SOLVER.PL_LAMBDA)}
+
+
+def _pl_frames(n, h, w, seed=11):
+    """(decoded, target) NHWC f32: a seeded moving frame and a noisy copy
+    with values at and past the clip's bounds."""
+    target = torch.cat(moving_frames(n, h, w, seed=seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    decoded = target + 0.05 * torch.randn(target.shape, generator=g)
+    decoded[:, ::7, ::5] = 0.0
+    return decoded, target
+
+
+def _pl_call(kind, model, target, decoded, layers):
+    """pl_fn's call on a given copy of its network (f32 or float64)."""
+    t = target.permute(0, 3, 1, 2).contiguous()
+    d = decoded.permute(0, 3, 1, 2).contiguous()
+    if kind == "yolo":
+        return model(t, d, feature_layers=layers)
+    return model(d, t, feature_layers=layers)
+
+
+def check_perceptual_losses(smi):
+    """Phase 11 (a): each loss (seeded, f32, default PL_LAYERS) on the card
+    against the CPU at the train step's shape (4x256x256) and at 1088x1920,
+    both resized to 224 (the YOLO loss pads to /32 instead): the value
+    rtol 1e-4; d decoded in float64 on both devices within 1e-3 of the
+    largest (not the YOLO loss at 1088x1920: YOLOv8m's float64 backward
+    there is minutes of CPU) and the card's f32 d decoded within 2e-2 of
+    its float64 one in the 2-norm (an f32 ReLU or max-pool input within
+    rounding of a kink takes the other branch now and then); the card's
+    ms per call, forward and forward + backward, inside
+    rowwise.whole_batch() as the train step calls it."""
+    from vcm_ts_tpu_torch.ops import rowwise
+    from vcm_ts_tpu_torch.train.losses import get_perceptual_loss
+    from vcm_ts_tpu_torch.utils.config import default_training_cfg
+
+    f32, f64 = torch.float32, torch.float64
+    rows = []
+    for kind in PL_KINDS:
+        cfg = default_training_cfg()
+        cfg.SOLVER.PL_MODEL = kind
+        layers = tuple(cfg.SOLVER.PL_LAYERS)
+        pls = {dev: get_perceptual_loss(cfg, dev, seed=0)
+               for dev in ("cpu", "cuda")}
+        nets64 = {dev: copy.deepcopy(pls[dev].model).double()
+                  for dev in ("cpu", "cuda")}
+        for n, h, w in ((TN, TH, TW), (1, H, W)):
+            decoded, target = _pl_frames(n, h, w)
+            cpu64 = kind != "yolo" or h == TH
+            r = {"loss": kind, "shape": [n, h, w], "layers": list(layers)}
+            with torch.no_grad():
+                v_cpu = _pl_call(kind, pls["cpu"].model, target, decoded,
+                                 layers)
+            grads = {}
+            for dev, dt in (("cuda", f32), ("cuda", f64)) + (
+                    (("cpu", f64),) if cpu64 else ()):
+                model = pls[dev].model if dt == f32 else nets64[dev]
+                d = decoded.to(dev, dt).detach().clone().requires_grad_()
+                with rowwise.whole_batch():
+                    v = _pl_call(kind, model, target.to(dev, dt), d, layers)
+                v.sum().backward()
+                grads[dev, dt] = d.grad.double().cpu()
+                if (dev, dt) == ("cuda", f32):
+                    v_card = v.detach().cpu()
+            r["value_cpu"], r["value_cuda"] = v_cpu.tolist(), v_card.tolist()
+            r["value_rel_err"] = float(((v_card - v_cpu).abs()
+                                        / v_cpu.abs()).max())
+            g64 = grads["cuda", f64]
+            r["grad_f32_vs_f64_norm_rel"] = float(
+                (grads["cuda", f32] - g64).norm() / g64.norm())
+            r["grad_f32_vs_f64_max_rel"] = float(
+                (grads["cuda", f32] - g64).abs().max() / g64.abs().max())
+            r["grad_f64_card_vs_cpu_max_rel"] = None
+            if cpu64:
+                want = grads["cpu", f64]
+                r["grad_f64_card_vs_cpu_max_rel"] = float(
+                    (g64 - want).abs().max() / want.abs().max())
+            if not (r["value_rel_err"] <= 1e-4
+                    and r["grad_f32_vs_f64_norm_rel"] <= 2e-2
+                    and (r["grad_f64_card_vs_cpu_max_rel"] is None
+                         or r["grad_f64_card_vs_cpu_max_rel"] <= 1e-3)
+                    and float(g64.abs().max()) > 0):
+                raise AssertionError(f"perceptual loss card vs CPU: {r}")
+
+            pl = pls["cuda"]
+            dc, tc = decoded.cuda(), target.cuda()
+            dg = dc.clone().requires_grad_()
+
+            def fwd():
+                with torch.no_grad(), rowwise.whole_batch():
+                    pl(tc, dc)
+
+            def fwd_bwd():
+                with rowwise.whole_batch():
+                    pl(tc, dg).sum().backward()
+
+            r["fwd_ms"] = cuda_ms(fwd, iters=5)
+            r["fwd_bwd_ms"] = cuda_ms(fwd_bwd, iters=5)
+            rows.append(r)
+            err64 = r["grad_f64_card_vs_cpu_max_rel"]
+            say(f"[perceptual] {kind} {n}x{h}x{w}: value card "
+                f"{_g3(r['value_cuda'])} vs CPU rel err "
+                f"{r['value_rel_err']:.3g}; d decoded float64 card vs CPU "
+                + ("not run" if err64 is None else f"{err64:.3g}")
+                + " of the largest; card f32 vs float64 "
+                f"{r['grad_f32_vs_f64_norm_rel']:.3g} (2-norm), "
+                f"{r['grad_f32_vs_f64_max_rel']:.3g} (largest element); "
+                f"card ms per call forward {r['fwd_ms']:.3f}, forward + "
+                f"backward {r['fwd_bwd_ms']:.3f} ({smi})")
+    return rows
+
+
+def run_perceptual_step(smi):
+    """Phase 11 (b): the cascade step of phase 8 (p_frames 2, remat, 4
+    anchors, 4x256x256, f32) with the ResNet loss: the 64x64 step card
+    against the CPU (phase 8's gate), launches and peak memory of one
+    warm step, a profiled step, and the loss falling over
+    PL_GATE_STEPS steps."""
+    from vcm_ts_tpu_torch.models.dmc import make_dpb
+    from vcm_ts_tpu_torch.ops import cuda_build
+    from vcm_ts_tpu_torch.train import train_step as tts
+    from vcm_ts_tpu_torch.train.optimizer import make_stage_optimizer
+    from vcm_ts_tpu_torch.utils.weights import make_dmc
+
+    out = {}
+    t = time.perf_counter()
+    out["reference"] = train_reference("resnet")
+    say(f"[perceptual step] 64x64 cascade step with the ResNet loss, card vs "
+        f"CPU: {out['reference']} ({time.perf_counter() - t:.1f} s)")
+    model = make_dmc("cuda")
+    opt = make_stage_optimizer(model, "all", 1e-4)
+    step = tts.make_cascade_step(model, opt, _train_stage(perceptual=True),
+                                 lambdas=LAMBDAS, dist_lambda=1.0,
+                                 **_pl_step_kwargs("resnet", "cuda"))
+    seq = _train_batch(TH, TW).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def one():
+        noises = tts.draw_cascade_noise(model, seq[1:], gen)
+        return step(seq[1:], seq[1:], make_dpb(seq[0]), noises)[0]
+
+    one()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launches()
+    aux = one()
+    torch.cuda.synchronize()
+    out["launches"] = dict(cuda_build.LAUNCHES)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    missing = [k for k in ("warp", "warp_bwd", "subpel_conv1x1",
+                           "pixel_shuffle_relayout", "space_to_depth")
+               if not out["launches"][k] > 0]
+    if missing or not float(aux.p_dist.min()) > 0:
+        raise AssertionError(f"perceptual cascade step: {missing} not "
+                             f"launched ({out['launches']}) or p_dist "
+                             f"{aux.p_dist.tolist()}")
+    t = time.perf_counter()
+    for _ in range(3):
+        one()
+    torch.cuda.synchronize()
+    out["wall_ms"] = (time.perf_counter() - t) / 3 * 1e3
+    out["profile"] = profile_ms(one)
+    losses = [float(one().loss.mean()) for _ in range(PL_GATE_STEPS)]
+    out["gate_losses"] = losses
+    if not (all(np.isfinite(losses))
+            and np.mean(losses[-3:]) < np.mean(losses[:3])):
+        raise AssertionError(f"perceptual step: the loss did not fall over "
+                             f"{PL_GATE_STEPS} steps: {losses}")
+    return out
+
+
+def run_perceptual_loop(out_dir, smi):
+    """Phase 11 (c): the trainer CLI over phase 10's tree with one
+    all/cascade stage (2 epochs) whose perceptual field is true (the
+    default SOLVER.PL_MODEL, resnet, seeded: no weights file ships)."""
+    from vcm_ts_tpu_torch.ops import cuda_build
+
+    root = os.path.join(out_dir, "perceptual_loop")
+    cfg = write_loop_tree(root, PL_STAGES)
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launches()
+    rec, out["run_s"] = _trainer(["--config-file", cfg])
+    out["launches"] = dict(cuda_build.LAUNCHES)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    epochs = rec["epochs"]
+    losses = [v for it in rec["iterations"] for v in it["loss"]]
+    with open(os.path.join(root, "run", "metrics.jsonl")) as f:
+        p_dist = [r["value"] for r in map(json.loads, f)
+                  if r["tag"].startswith("train/p_dist/")]
+    missing = [k for k in ("warp", "warp_bwd", "subpel_conv1x1",
+                           "pixel_shuffle_relayout", "space_to_depth")
+               if not out["launches"][k] > 0]
+    if (missing or [e["stage"] for e in epochs] != [0, 0]
+            or not (losses and np.all(np.isfinite(losses)))
+            or not (p_dist and min(p_dist) > 0)):
+        raise AssertionError(f"perceptual trainer: launches "
+                             f"{out['launches']}, epochs {epochs}, losses "
+                             f"{losses}, p_dist {p_dist}")
+    out["epochs"] = epochs
+    out["p_dist"] = p_dist
+    out["frames_per_s"] = epochs[1]["frames"] / epochs[1]["train_s"]
+    out["first_frames_per_s"] = epochs[0]["frames"] / epochs[0]["train_s"]
+    shutil.rmtree(root)
+    return out
+
+
+def run_rcnn(out_dir, smi):
+    """Phase 11 (d): the Faster-RCNN eval detector on seeded v2-layout
+    weights (91 classes; the class scores x RCNN_SCORE_GAIN) saved as a
+    .pth and loaded by
+    build_eval_adapter (min 1088 / max 1920), on phase 9's 1088x1920
+    frames: the networks on the card against the CPU on one frame's
+    preprocessed input and crops (within 1e-3 of each output's largest),
+    the detections of the two devices side by side (printed), ms per frame
+    by stage, pulls per frame; then benchmark_plot's rcnn branch over the
+    frames."""
+    from vcm_ts_tpu_torch import benchmark_plot as bp
+    from vcm_ts_tpu_torch.eval import rcnn_native as rn
+    from vcm_ts_tpu_torch.train.losses import seeded_init
+    from vcm_ts_tpu_torch.utils.profiling import HostTimers
+
+    path = os.path.join(out_dir, "rcnn_seeded.pth")
+    seeded = seeded_init(rn.FasterRCNNNativeDetector(device="cpu"), 0)
+    with torch.no_grad():
+        # LeCun-normal class logits have a std of about 0.12 here: every
+        # class would score under the 0.05 threshold and post-processing
+        # would see no box
+        seeded.roi_heads.box_predictor.cls_score.weight.mul_(RCNN_SCORE_GAIN)
+    torch.save(seeded.state_dict(), path)
+    adapter = rn.build_eval_adapter(path, device="cuda")
+    det = adapter.detector
+    cdet = rn.FasterRCNNNativeDetector.load_pth(path, device="cpu",
+                                                min_size=1088, max_size=1920)
+    frames = [_u8(f) for f in moving_frames(EVAL_FRAMES, H, W, seed=9)]
+    out = {"frames": len(frames)}
+
+    x, _ = det._preprocess(frames[0])
+    cx, _ = cdet._preprocess(frames[0])
+    out["preprocess_max_abs_err"] = float((x.cpu() - cx).abs().max())
+    levels, rpn = det.forward_backbone(x)
+    clevels, crpn = cdet.forward_backbone(x.cpu())
+    errs = {}
+
+    def rel(a, b):
+        return float((a.cpu() - b).abs().max() / b.abs().max())
+
+    for k, (a, b) in enumerate(zip(levels, clevels)):
+        errs[f"level {rn.LEVELS[k]}"] = rel(a, b)
+    for k, ((a, b), (c, d)) in enumerate(zip(rpn, crpn)):
+        errs[f"rpn logits {rn.LEVELS[k]}"] = rel(a, c)
+        errs[f"rpn deltas {rn.LEVELS[k]}"] = rel(b, d)
+    crops = torch.randn((256, 256, 7, 7),
+                        generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        gs, gd = det.roi_heads.box_predictor(
+            det.roi_heads.box_head(crops.cuda()))
+        cs, cd = cdet.roi_heads.box_predictor(cdet.roi_heads.box_head(crops))
+    errs["box scores"], errs["box deltas"] = rel(gs, cs), rel(gd, cd)
+    out["card_vs_cpu_max_rel"] = errs
+    if not (max(errs.values()) <= 1e-3
+            and out["preprocess_max_abs_err"] <= 1e-6):
+        raise AssertionError(f"rcnn card vs CPU: {errs}, preprocess "
+                             f"{out['preprocess_max_abs_err']}")
+
+    # detections of the two devices on frame 0: the share of the CPU's
+    # that the card finds too (same label, IoU >= 0.9); printed, not a
+    # gate (a proposal at the top-1000 boundary may swap on a float)
+    got, want = det.detect(frames[0]), cdet.detect(frames[0])
+
+    def area(z):
+        return np.prod(z[:, 2:] - z[:, :2], -1)
+
+    def iou(a, b):
+        lt = np.maximum(a[:, None, :2], b[None, :, :2])
+        rb = np.minimum(a[:, None, 2:], b[None, :, 2:])
+        inter = np.prod(np.clip(rb - lt, 0, None), -1)
+        return inter / (area(a)[:, None] + area(b)[None] - inter)
+
+    same = (iou(want["boxes"], got["boxes"]) >= 0.9) & (
+        want["labels"][:, None] == got["labels"][None])
+    out["detections"] = {"cuda": len(got["labels"]),
+                         "cpu": len(want["labels"]),
+                         "cpu_found_on_card": float(same.any(1).mean())
+                         if len(want["labels"]) else 1.0}
+
+    def sane(o):
+        b = o["boxes"]
+        return (0 < len(o["labels"]) <= 100 and np.isfinite(b).all()
+                and o["labels"].min() >= 1 and o["labels"].max() < 91
+                and (b[:, [0, 2]] <= W).all() and (b[:, [1, 3]] <= H).all()
+                and (b >= 0).all())
+
+    timers = HostTimers()
+    pulls = det.pulls
+    for f in frames:
+        o = det.detect(f, timers=timers)
+        if not sane(o):
+            raise AssertionError(f"rcnn detect: {o}")
+    out["pulls_per_frame"] = (det.pulls - pulls) / len(frames)
+    out["stage_ms"] = {k: v["mean_ms"] for k, v in timers.report().items()}
+    decoded = [torch.from_numpy(f).cuda()[None].float() / 255 for f in frames]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for d in decoded:
+        adapter(d)
+    torch.cuda.synchronize()
+    out["adapter_ms_per_frame"] = (time.perf_counter() - t) / len(frames) * 1e3
+    if out["pulls_per_frame"] != 2:
+        raise AssertionError(f"rcnn: {out['pulls_per_frame']} pulls a frame")
+
+    branch = bp.build_rcnn("cuda", weights=path)
+    branch(frames[0].astype(np.float32) / 255.0, 1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for f in frames:
+        o = branch(f.astype(np.float32) / 255.0, 1)
+        if not (o["labels"].min() >= 2 and np.isfinite(o["boxes"]).all()):
+            raise AssertionError(f"benchmark_plot rcnn branch: {o}")
+    out["branch_ms_per_frame"] = (time.perf_counter() - t) / len(frames) * 1e3
+    os.remove(path)  # 160 MB
+    return out
+
+
+def run_perceptual(out_dir, smi, base_step):
+    """Phase 11: (a)-(d) with their lines; returns the record."""
+    t_phase = time.perf_counter()
+    out = {"losses": check_perceptual_losses(smi)}
+    t = time.perf_counter()
+    out["step"] = s = run_perceptual_step(smi)
+    p, b = s["profile"], base_step["profile"]
+    say(f"[perceptual step] cascade step (p_frames 2, remat, 4x{TH}x{TW} "
+        f"f32) with the ResNet loss (PL_LAMBDA 10): wall {s['wall_ms']:.1f} "
+        f"ms (3 steps), profiled wall {p['wall_ms']:.1f} ms, device busy "
+        f"{p['device_busy_ms']:.1f} ms, idle share {p['idle_share']:.3f}, "
+        f"{p['launches']} launches, peak "
+        f"{s['peak_bytes'] / 2**30:.2f} GiB; phase 8's step without it: "
+        f"wall {b['wall_ms']:.1f} ms, busy {b['device_busy_ms']:.1f} ms, "
+        f"{b['launches']} launches; port kernels' launches per step "
+        f"{s['launches']}; loss over {PL_GATE_STEPS} steps "
+        f"{s['gate_losses'][0]:.4f} -> {s['gate_losses'][-1]:.4f} "
+        f"({time.perf_counter() - t:.1f} s; {smi})")
+    top = ", ".join(f"{k['name'][:50]} {k['ms']:.1f} ms x{k['launches']}"
+                    for k in p["top_kernels"][:6])
+    say(f"[perceptual step] top kernels: {top}")
+    t = time.perf_counter()
+    out["loop"] = lp = run_perceptual_loop(out_dir, smi)
+    say(f"[perceptual trainloop] trainer CLI, stage "
+        f"{'/'.join(PL_STAGES[0][:3])} x2 with the ResNet loss over "
+        f"{LOOP_TRAIN} train / {LOOP_TEST} test sequences of {LOOP_T} "
+        f"{TW}x{TH} tiles: epoch 1 {lp['frames_per_s']:.3f} frames/s "
+        f"(epoch 0 {lp['first_frames_per_s']:.3f}), p_dist "
+        f"{_g3(lp['p_dist'][:4])}, peak {lp['peak_bytes'] / 2**30:.2f} GiB, "
+        f"launches {lp['launches']}, run {lp['run_s']:.1f} s "
+        f"({time.perf_counter() - t:.1f} s; {smi})")
+    t = time.perf_counter()
+    out["rcnn"] = r = run_rcnn(out_dir, smi)
+    stages = ", ".join(f"{k[len('rcnn_'):]} {v:.2f}"
+                       for k, v in r["stage_ms"].items())
+    say(f"[rcnn] {r['frames']} frames {W}x{H}, seeded 91 classes, min 1088 "
+        f"/ max 1920: card vs CPU max rel err "
+        f"{max(r['card_vs_cpu_max_rel'].values()):.3g} "
+        f"({r['card_vs_cpu_max_rel']}); detections frame 0 card "
+        f"{r['detections']['cuda']}, CPU {r['detections']['cpu']}, CPU's "
+        f"found on the card {r['detections']['cpu_found_on_card']:.3f}; ms "
+        f"per frame by stage (synchronized): {stages}; adapter "
+        f"{r['adapter_ms_per_frame']:.1f} ms per frame; "
+        f"{r['pulls_per_frame']:g} pulls per frame; benchmark_plot's rcnn "
+        f"branch (min 800 / max 1333) {r['branch_ms_per_frame']:.1f} ms per "
+        f"frame ({time.perf_counter() - t:.1f} s; {smi})")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
 
 
 def _g3(xs):
@@ -2360,13 +2785,19 @@ def main():
     say(f"[phases 9-10] eval {t_eval:.1f} s, trainloop "
         f"{time.perf_counter() - t:.1f} s; total so far "
         f"{time.perf_counter() - t_start:.1f} s ({smi})")
+    perceptual = run_perceptual(out_dir, smi, train)
+    say(f"[phase 11] perceptual {perceptual['phase_s']:.1f} s; total so far "
+        f"{time.perf_counter() - t_start:.1f} s ({smi})")
 
     # one entry per kernel: its first (main-path) shape, and its launches
     # summed over the main paths: the two GOPs, the two batched serving
     # runs, the warm VCM pipeline run, one cascade train step, the eval
-    # harness's sequential run and the trainer's run (each read with the
-    # counts reset just before it)
-    paths = gops + serving["batch"] + [vcm, train, evaluation, loop]
+    # harness's sequential run, the trainer's run, one cascade step with
+    # the perceptual loss and the trainer's perceptual run (each read with
+    # the counts reset just before it)
+    paths = gops + serving["batch"] + [vcm, train, evaluation, loop,
+                                       perceptual["step"],
+                                       perceptual["loop"]]
     kernels = []
     for name in ("warp", "warp_bwd", "subpel_conv1x1",
                  "pixel_shuffle_relayout", "space_to_depth", "warp_twopass"):
@@ -2384,7 +2815,8 @@ def main():
                    "bench": benches, "gops": gops, "serving": serving,
                    "kernels_batched": batched, "vcm": vcm,
                    "train": train, "eval": evaluation, "trainloop": loop,
-                   "kernels": kernels}, f, indent=1, default=float)
+                   "perceptual": perceptual, "kernels": kernels}, f,
+                  indent=1, default=float)
     say(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s "
         f"({smi})")
     print(json.dumps({"kernels": kernels}))

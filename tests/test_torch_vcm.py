@@ -317,7 +317,7 @@ def test_eval_detector_backends(monkeypatch, tmp_path):
         class SOLVER:
             PL_MODEL = "resnet"
 
-    with pytest.raises(NotImplementedError, match="fasterrcnn"):
+    with pytest.raises(FileNotFoundError, match="fasterrcnn"):
         t_detector.build_eval_detector(Cfg, device="cpu")
     Cfg.SOLVER.PL_MODEL = "yolo"
     monkeypatch.setattr(weights, "PRETRAINED", str(tmp_path))

@@ -12,8 +12,11 @@ device, ops/msssim.py), cache them per quality as *_metrics.json, and plot.
 - YOLO detection and plate OCR run the port's native modules
   (eval/yolo_native.py on a tools/export_yolo_detector.py .npz,
   eval/ocr_native.py on pretrained/plate_ocr.npz).
-- Faster-RCNN (`build_rcnn`) waits for the port's Faster-RCNN, ROADMAP.md
-  Queue 1 item 4: it raises.
+- Faster-RCNN (`build_rcnn`) runs the port's native detector
+  (eval/rcnn_native.py) on
+  pretrained/fasterrcnn_resnet50_fpn_v2_coco-dd69338a.pth at torchvision's
+  default sizes (min 800, max 1333), as the root script's native branch;
+  without the file it raises and names it.
 - `plot_graphs` needs matplotlib, which it imports itself: without it, it
   raises and names the package; the metrics need none of it.
 """
@@ -82,11 +85,30 @@ line_colors = ["tab:blue", "tab:orange", "tab:green", "tab:red", "tab:purple",
 
 # ------------------------------------------------------------- adapters
 
-def build_rcnn(device="cuda"):
-    raise NotImplementedError(
-        "Faster-RCNN detection waits for the port's Faster-RCNN "
-        "(ROADMAP.md Queue 1 item 4) and its weights "
-        "pretrained/fasterrcnn_resnet50_fpn_v2_coco-dd69338a.pth")
+def build_rcnn(device="cuda", weights=None):
+    """The native Faster-RCNN on a torchvision v2 checkpoint (`weights`,
+    else the repository's pretrained/ file); labels offset by the
+    caller's labels_start_index."""
+    from .eval.rcnn_native import FasterRCNNNativeDetector
+    from .train.losses import RCNN_WEIGHTS
+    from .utils.weights import PRETRAINED
+
+    weights = weights or os.path.join(PRETRAINED, RCNN_WEIGHTS)
+    if not os.path.exists(weights):
+        raise FileNotFoundError(
+            f"Faster-RCNN inference needs {weights}, which is not in the "
+            "repository")
+    det_native = FasterRCNNNativeDetector.load_pth(weights, device=device)
+
+    def det(rgb, labels_start_index):
+        if rgb.dtype != np.uint8:
+            rgb = np.rint(rgb * 255).clip(0, 255).astype(np.uint8)
+        out = det_native.detect(rgb)
+        out["labels"] = out["labels"] + labels_start_index
+        return out
+
+    det.detector = det_native
+    return det
 
 
 def build_yolo(weights, device="cuda"):

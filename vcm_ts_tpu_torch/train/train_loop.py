@@ -92,10 +92,10 @@ def do_train(cfg, model, data_loader, checkpointer, start_epoch: int = 0,
             cur_stage_idx = stage.stage
             logger.info("Entering stage %d: %s", stage.stage, stage)
             if stage.perceptual_loss and pl_fn is None:
-                raise NotImplementedError(
-                    f"stage {stage.stage} has perceptual_loss true: the "
-                    "perceptual losses wait for the port's train/losses.py "
-                    "(ROADMAP.md Queue 1 item 4)")
+                raise ValueError(
+                    f"stage {stage.stage} has perceptual_loss true but no "
+                    "pl_fn was given (build one with "
+                    "train/losses.get_perceptual_loss)")
             opt = make_stage_optimizer(
                 model, stage.trainable_mode, stage.lr,
                 grad_clip_norm=float(

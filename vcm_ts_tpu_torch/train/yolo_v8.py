@@ -1,37 +1,31 @@
-"""YOLOv8 backbone and neck (the port's copy of the graph in
-vcm_ts_tpu/train/yolo_v8.py:34-157), inference only.
+"""YOLOv8 backbone and neck, and the YOLO perceptual loss (the port's copy
+of vcm_ts_tpu/train/yolo_v8.py:34-217).
 
 Conv = conv (no bias) + frozen BatchNorm + SiLU; C2f with split/dense
 bottlenecks; SPPF; nearest upsample + concat neck. Children carry the
 ultralytics state-dict names ("0".."21", cv1/cv2/m.N/conv/bn), so weights
-exported from ultralytics load with strict=True. NCHW. The YOLO perceptual
-loss that the JAX package also builds on this graph is not ported yet.
+exported from ultralytics load with strict=True. NCHW. The convs go
+through ops/rowwise.conv2d (the perceptual loss differentiates through
+them; see train/losses.py).
+
+Weights come from the torch-free .npz (tools/export_yolo_detector.py)
+through utils/weights.yolo_state_dicts, not from the .pt: unpickling the
+.pt needs ultralytics' classes.
 """
 
 from __future__ import annotations
+
+import os
+from typing import Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-
-class FrozenBatchNorm(nn.Module):
-    """Eval-mode BatchNorm from imported statistics, computed as the JAX
-    package does: x * inv + (beta - mean * inv) with
-    inv = gamma / sqrt(var + eps)."""
-
-    def __init__(self, features: int, eps: float = 1e-5):
-        super().__init__()
-        self.eps = eps
-        self.register_buffer("weight", torch.ones(features))
-        self.register_buffer("bias", torch.zeros(features))
-        self.register_buffer("running_mean", torch.zeros(features))
-        self.register_buffer("running_var", torch.ones(features))
-
-    def forward(self, x):
-        inv = self.weight * torch.rsqrt(self.running_var + self.eps)
-        shift = self.bias - self.running_mean * inv
-        return x * inv[:, None, None] + shift[:, None, None]
+from ..codec.bitstream import get_padding_size
+from ..ops.layers import Conv2d
+from ..utils.weights import yolo_state_dicts
+from .losses import FrozenBatchNorm, jclip01
 
 
 class ConvBnSiLU(nn.Module):
@@ -39,8 +33,8 @@ class ConvBnSiLU(nn.Module):
 
     def __init__(self, cin: int, cout: int, kernel: int = 1, stride: int = 1):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, kernel, stride, kernel // 2,
-                              bias=False)
+        self.conv = Conv2d(cin, cout, kernel, stride, kernel // 2,
+                           bias=False)
         self.bn = FrozenBatchNorm(cout, eps=1e-3)
 
     def forward(self, x):
@@ -160,3 +154,37 @@ class YOLOv8Backbone(nn.Module):
         x21 = m["21"](torch.cat([x19, x9], 1))
         taps["5_deep"] = x21
         return taps
+
+
+class YOLOV8PerceptualLoss(nn.Module):
+    """Clip to [0, 1], zero-pad right and bottom to a multiple of 32, tap
+    the backbone ("model") at eight layers, and sum the raw mean squared
+    differences over the taps, per row."""
+
+    def __init__(self, width: float = 0.75, depth: float = 0.67):
+        super().__init__()
+        self.model = YOLOv8Backbone(width, depth)
+
+    def forward(self, target, input,
+                feature_layers: Sequence[str] = ("1", "2", "3", "4", "5",
+                                                 "3_deep", "4_deep",
+                                                 "5_deep")):
+        input, target = jclip01(input), jclip01(target)
+        _, pr, _, pb = get_padding_size(*input.shape[-2:], p=32)
+        if pr or pb:
+            input = F.pad(input, (0, pr, 0, pb))
+            target = F.pad(target, (0, pr, 0, pb))
+        fs_in, fs_tg = self.model(input), self.model(target)
+        losses = [torch.mean((fs_in[k] - fs_tg[k]) ** 2, dim=(1, 2, 3))
+                  for k in fs_in if k in feature_layers]
+        return torch.stack(losses).sum(0)
+
+
+def load_yolo_backbone(loss: YOLOV8PerceptualLoss, npz_path: str):
+    """The backbone of a YOLOv8 .npz (ultralytics names; the Detect head
+    "model.22." dropped) into the loss, strict."""
+    if not os.path.exists(npz_path):
+        raise FileNotFoundError(f"YOLOv8 weights {npz_path} not found")
+    _, bb_sd, _ = yolo_state_dicts(npz_path)
+    loss.model.load_state_dict(bb_sd, strict=True)
+    return loss

@@ -14,9 +14,10 @@ DATASET.TEST_OD_ROOT_DIRS is set, and run the stage curriculum
 (train/train_loop.do_train).
 
 Without PRETRAINED_WEIGHTS or a checkpoint the DMC starts from the port's
-seeded init (utils/weights.init_params with --seed). A stage with a
-perceptual loss raises: the perceptual losses wait for ROADMAP.md Queue 1
-item 4.
+seeded init (utils/weights.init_params with --seed). When a stage has its
+perceptual-loss field true, the SOLVER.PL_MODEL network (resnet, fpn or
+yolo; train/losses.get_perceptual_loss) is built once, frozen and outside
+the optimizer and the checkpoints, and handed to the loop.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from .eval.detector import build_eval_detector
 from .models.dmc import DMC
 from .models.intra import IntraNoAR
 from .train.checkpoint import CheckPointer
+from .train.losses import get_perceptual_loss
 from .train.train_loop import do_train
 from .utils.common import enable_debug_nans, interpolate_log
 from .utils.config import default_training_cfg
@@ -69,11 +71,6 @@ def _i_frame_fn(cfg, device, logger):
 def train_model(cfg, args):
     device = resolve_device(args.device)
     logger = setup_logger("CORE", 0, cfg.OUTPUT_DIR)
-    if any(stage[7] == "true" for stage in cfg.SOLVER.STAGES):
-        raise NotImplementedError(
-            "SOLVER.STAGES has a perceptual-loss stage: the perceptual "
-            "losses wait for the port's train/losses.py (ROADMAP.md Queue 1 "
-            "item 4)")
     if cfg.SOLVER.DEBUG_NANS:
         enable_debug_nans()
         logger.info("autograd anomaly mode ON (debug only: slow)")
@@ -98,6 +95,10 @@ def train_model(cfg, args):
     i_frame_fn = (_i_frame_fn(cfg, device, logger)
                   if cfg.MODEL.I_FRAME_PRETRAINED_WEIGHTS else None)
 
+    pl_fn = None
+    if any(stage[7] == "true" for stage in cfg.SOLVER.STAGES):
+        pl_fn = get_perceptual_loss(cfg, device, seed=args.seed)
+
     train_loader = make_data_loader(cfg, args.seed, is_train=True)
     test_loader = (make_data_loader(cfg, args.seed, is_train=False)
                    if cfg.DATASET.TEST_ROOT_DIRS else None)
@@ -113,7 +114,7 @@ def train_model(cfg, args):
     return do_train(cfg, model, train_loader, checkpointer,
                     start_epoch=start_epoch, seed=args.seed,
                     test_loader=test_loader, i_frame_fn=i_frame_fn,
-                    od_loader=od_loader, detector_fn=detector_fn,
+                    pl_fn=pl_fn, od_loader=od_loader, detector_fn=detector_fn,
                     resume_opt_state=resume_opt_state)
 
 

@@ -7,6 +7,9 @@ which the port's modules load with strict=True:
 - conv kernels HWIO -> OIHW, Dense kernels transposed;
 - per-channel (1, 1, 1, C) vectors -> (1, C, 1, 1).
 
+`rcnn_state_dict_from_flax` does the same for the JAX package's
+Faster-RCNN (its heads carry other names than torchvision's).
+
 `init_params` draws the JAX package's default init with a torch.Generator:
 Xavier-normal with gain sqrt(2) for conv and linear weights, bias 0.01,
 N(0, 0.01) for the bit estimators, ones for the q parameters. Multiplying
@@ -64,6 +67,41 @@ def state_dict_from_flax(params: dict) -> dict:
             out[key] = torch.from_numpy(np.array(v, copy=True, order="C"))
 
     walk(inner, "")
+    return out
+
+
+def rcnn_state_dict_from_flax(params: dict) -> dict:
+    """The JAX package's Faster-RCNN parameters ({"body", "fpn", "rpn",
+    "box"}, as eval/rcnn_native.FasterRCNNNativeDetector holds them) as a
+    torchvision fasterrcnn_resnet50_fpn_v2 state dict, which the port's
+    detector loads with strict=True. The heads' flax names map back to
+    torchvision's: rpn conv{i} / bn{i} -> rpn.head.conv.{i}.0 / .1, cls ->
+    cls_logits, bbox -> bbox_pred; box conv{i} / bn{i} ->
+    roi_heads.box_head.{i}.0 / .1, fc -> roi_heads.box_head.{n + 1} for
+    n convs (torchvision's layout: after the convs and the Flatten),
+    cls_score / bbox_pred -> roi_heads.box_predictor.*."""
+    import re
+
+    rpn_names = {"cls": "cls_logits", "bbox": "bbox_pred"}
+    n_convs = sum(1 for k in params["box"].get("params", params["box"])
+                  if k.startswith("conv"))
+    out = {}
+    for part, prefix in (("body", "backbone.body."), ("fpn", "backbone.fpn."),
+                         ("rpn", "rpn.head."), ("box", "roi_heads.")):
+        for k, v in state_dict_from_flax(params[part]).items():
+            head, rest = k.split(".", 1)
+            m = re.fullmatch(r"(conv|bn)(\d+)", head)
+            if part == "rpn":
+                head = (f"conv.{m[2]}.{0 if m[1] == 'conv' else 1}" if m
+                        else rpn_names[head])
+            elif part == "box":
+                if m:
+                    head = f"box_head.{m[2]}.{0 if m[1] == 'conv' else 1}"
+                elif head == "fc":
+                    head = f"box_head.{n_convs + 1}"
+                else:
+                    head = "box_predictor." + head
+            out[prefix + head + "." + rest] = v
     return out
 
 
