@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: kernels, bench, GOPs,
 serving, the VCM pipeline, training, the eval harness and the training
-loop, the perceptual losses and the Faster-RCNN eval detector.
+loop, the perceptual losses and the Faster-RCNN eval detector, and
+multi-process training and serving.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -107,7 +108,25 @@ result line):
    CPU (within 1e-3 of each output's largest), the two devices'
    detections side by side, ms per frame by stage (backbone, host
    proposals, RoIAlign, box head, host post-processing), pulls per frame,
-   and benchmark_plot's rcnn branch over the frames.
+   and benchmark_plot's rcnn branch over the frames;
+12. multi-process training and serving (vcm_ts_tpu_torch/parallel,
+   trainer_multi, the harness's rank split, fleet serving), with ranks
+   started by parallel/spawn.run_ranks: (a) one NCCL rank (the machine has
+   one card; NCCL takes one rank per device) runs phase 8's cascade step
+   plain, data parallel and FSDP from one state, each held to the plain
+   step with phase 8's card-against-card tolerance (wall ms, peak
+   memory); (b) two gloo ranks share the card (gloo stages CUDA tensors
+   through the host): whether gloo takes CUDA tensors in FSDP's
+   collectives (reduce_scatter_tensor, all_gather_into_tensor), then the
+   DP (and, if it does, FSDP) step on 4 rows each against one process on
+   the 8 global rows, and the ms of the gradient all-reduce (host-staged
+   gloo, not a scaling figure); trainer_multi's main over phase 10's tree
+   (all/cascade x2; frames/s, rank 0's checkpoints load strict);
+   test_video's main over phase 9's frames with 2 rate points split over
+   the ranks (every .bin equal to phase 9's one-process run); (c) an I +
+   P batch at N = 2 through fleet codecs over ["cuda:0", "cuda:0"]
+   against the unsharded batch. The ranks' launches join the kernels
+   line.
 
 The last three lines of standard output are the `kernels` JSON object, the
 nvidia-smi line, and then {"ok": true, "device": {...}}. A longer record
@@ -1990,7 +2009,9 @@ def run_eval(out_dir, smi):
     if not all(abs(v) <= 1e-6 for v in out["bd_self"]):
         raise AssertionError(f"eval: BD of a curve against itself "
                              f"{out['bd_self']}")
-    shutil.rmtree(root)  # about 150 MB of frames and streams
+    # phase 12 reruns two rate points over these frames in two ranks and
+    # deletes the tree (about 150 MB of frames and streams)
+    out["root"] = root
     out["phase_s"] = time.perf_counter() - t_phase
     return out
 
@@ -2638,6 +2659,396 @@ def run_perceptual(out_dir, smi, base_step):
     return out
 
 
+# ----------------------------------------------------------------- phase 12
+PAR_STAGES = [["2", "all", "cascade", "rec", "all", "0.0001", "2", "false"]]
+PAR_RATES = 2  # phase 9's first two rate points (Q_ANCHORS)
+
+
+def _par_batch(seed_rows):
+    """(3, 4 * len(seed_rows), TH, TW, 3): phase 8's batch (seed 0) and,
+    for more rows, further seeded blocks of 4 moving sequences."""
+    return torch.cat([_train_batch(TH, TW, seed=s) for s in seed_rows], 1)
+
+
+def _par_noise(model, seq):
+    """A cascade step's noise for the global rows of seq, drawn on the
+    card from a fixed seed (phase 8's draw), on the CPU."""
+    from vcm_ts_tpu_torch.train import train_step as tts
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    noises = tts.draw_cascade_noise(model, seq[1:].cuda(), g)
+    return [tuple(t.cpu() for t in n) for n in noises]
+
+
+def par_steps(spec):
+    """In each rank (or, with no process group, alone): phase 8's cascade
+    step (published widths, p_frames 2, remat, f32, lr 1e-4) from the
+    seeded DMC on this rank's rows of spec["seq"] with spec["noise"], for
+    each mode of spec["modes"] ("plain": no mesh, the rows given; "dp";
+    "fsdp"), twice from the same state: the first warms up, the second is
+    timed (wall ms, peak memory, the kernel launches of that step alone,
+    and under dp the ms of reduce_gradients, synchronized on both
+    sides). With spec["probe"], first whether gloo takes CUDA tensors in
+    reduce_scatter_tensor and all_gather_into_tensor (FSDP's collectives);
+    fsdp runs only if it does."""
+    import torch.distributed as dist
+
+    from vcm_ts_tpu_torch.models.dmc import make_dpb
+    from vcm_ts_tpu_torch.ops import cuda_build
+    from vcm_ts_tpu_torch.parallel import mesh as pm
+    from vcm_ts_tpu_torch.parallel.tensor import shard_params_fsdp
+    from vcm_ts_tpu_torch.train import train_step as tts
+    from vcm_ts_tpu_torch.train.optimizer import make_stage_optimizer
+    from vcm_ts_tpu_torch.utils.device import set_codec_numerics
+    from vcm_ts_tpu_torch.utils.weights import make_dmc
+
+    set_codec_numerics()
+    dev = pm.local_device("cuda")
+    out = {"modes": {}}
+    modes = list(spec["modes"])
+    if spec.get("probe"):
+        out["probe"] = {}
+        x = torch.ones(4, device=dev)
+        for name, call in (
+                ("reduce_scatter_tensor", lambda: dist.reduce_scatter_tensor(
+                    torch.empty(2, device=dev), x)),
+                ("all_gather_into_tensor",
+                 lambda: dist.all_gather_into_tensor(
+                     torch.empty(8, device=dev), x[:4]))):
+            try:
+                call()
+                torch.cuda.synchronize(dev)
+                out["probe"][name] = "ok"
+            except RuntimeError as e:
+                out["probe"][name] = str(e).splitlines()[0][:200]
+        if any(v != "ok" for v in out["probe"].values()):
+            modes.remove("fsdp")
+    for mode in modes:
+        for timed in (False, True):
+            model = make_dmc(dev)
+            mesh = None
+            if mode != "plain":
+                mesh = pm.make_global_mesh(device_type="cuda")
+                if mode == "fsdp":
+                    shard_params_fsdp(model, mesh)
+            opt = make_stage_optimizer(model, "all", 1e-4)
+            step = tts.make_cascade_step(model, opt, _train_stage(),
+                                         lambdas=LAMBDAS, dist_lambda=1.0,
+                                         pl_lambda=0.0, mesh=mesh)
+            rows = (pm.global_batch if mesh is not None
+                    else (lambda v, **k: v))
+            seq = rows(spec["seq"], batch_dim=1).to(dev)
+            noise = [tuple(rows(t).to(dev) for t in n)
+                     for n in spec["noise"]]
+            reduce_ms = []
+            reduce0 = pm.reduce_gradients
+
+            def reduce_timed(*a, **k):
+                torch.cuda.synchronize(dev)
+                t = time.perf_counter()
+                r = reduce0(*a, **k)
+                torch.cuda.synchronize(dev)
+                reduce_ms.append(1e3 * (time.perf_counter() - t))
+                return r
+
+            pm.reduce_gradients = reduce_timed
+            try:
+                torch.cuda.synchronize(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                cuda_build.reset_launches()
+                t = time.perf_counter()
+                aux, _ = step(seq[1:], seq[1:], make_dpb(seq[0]), noise)
+                torch.cuda.synchronize(dev)
+                wall = 1e3 * (time.perf_counter() - t)
+            finally:
+                pm.reduce_gradients = reduce0
+            if not timed:
+                continue
+            out["modes"][mode] = {
+                "wall_ms": wall, "reduce_ms": reduce_ms,
+                "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                "launches": dict(cuda_build.LAUNCHES),
+                "aux": {f: getattr(aux, f).cpu() for f in
+                        tts.FrameAux._fields},
+                "mu": {k: v.cpu() for k, v in opt.state_dict()["mu"].items()},
+                "params": pm.host_copy(model)}
+    return out
+
+
+def _par_gate(got, want, label):
+    """Phase 8's card-against-card tolerance (train_reference): FrameAux
+    rtol 1e-3, gradients (first moments) within 2e-2 of each leaf's
+    largest magnitude, parameters within 1e-6 + 0.05 lr where |g| is
+    above 4e-2 of its leaf's largest, 2.1 lr elsewhere. Returns the
+    largest errors."""
+    lr = 1e-4
+    err = {"aux": 0.0, "grad": 0.0, "param": 0.0}
+    for f, b in want["aux"].items():
+        a = got["aux"][f]
+        e = float(((a - b).abs() / b.abs().clamp_min(1e-6)).max())
+        err["aux"] = max(err["aux"], e)
+        if not e <= 1e-3:
+            raise AssertionError(f"{label}: {f} {a.tolist()} vs {b.tolist()}")
+    for k, m in want["mu"].items():
+        scale = max(float(m.abs().max()), 1e-30)
+        e = float((got["mu"][k] - m).abs().max()) / scale
+        err["grad"] = max(err["grad"], e)
+        if not e <= 2e-2:
+            raise AssertionError(f"{label}: gradient {k} off by {e} of its "
+                                 "scale")
+        firm = m.abs() > 4e-2 * scale
+        d = (got["params"][k] - want["params"][k]).abs()
+        tol = torch.where(firm, torch.full_like(d, 1e-6 + 0.05 * lr),
+                          torch.full_like(d, 2.1 * lr))
+        if not bool((d <= tol).all()):
+            raise AssertionError(f"{label}: parameter {k} off by "
+                                 f"{float(d.max())}")
+        err["param"] = max(err["param"], float(d.max()))
+    return err
+
+
+def par_jobs(trainer_argv, video_argv):
+    """A gloo rank sharing the card: trainer_multi's main over phase 10's
+    tree, then test_video's main over phase 9's frames; each with its own
+    launches and wall seconds."""
+    import sys as _sys
+
+    from vcm_ts_tpu_torch import test_video, trainer_multi
+    from vcm_ts_tpu_torch.ops import cuda_build
+
+    _sys.modules["torch.utils.tensorboard"] = None  # as on a card without
+    out = {}
+    for name, call in (("trainer", lambda: trainer_multi.main(trainer_argv)),
+                       ("video", lambda: test_video.main(video_argv))):
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        t = time.perf_counter()
+        rec = call()
+        torch.cuda.synchronize()
+        out[name] = {"s": time.perf_counter() - t, "record": rec,
+                     "launches": dict(cuda_build.LAUNCHES)}
+        torch.cuda.empty_cache()  # two ranks' 1088x1920 codecs come next
+    return out
+
+
+def _add_launches(*counts):
+    total = {}
+    for c in counts:
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _need(launches, names, label):
+    missing = [k for k in names if not launches.get(k, 0) > 0]
+    if missing:
+        raise AssertionError(f"{label}: {missing} not launched: {launches}")
+
+
+TRAIN_KERNELS = ("warp", "warp_bwd", "subpel_conv1x1",
+                 "pixel_shuffle_relayout", "space_to_depth")
+CODEC_KERNELS = ("warp", "subpel_conv1x1", "pixel_shuffle_relayout")
+
+
+def run_fleet():
+    """An I + P batch at N = 2 (1088x1920, f32, real streams) through
+    codecs with set_fleet_sharding(["cuda:0", "cuda:0"]) (each replica on
+    its own thread and CUDA stream) against the unsharded batch: the same
+    streams, recon and DPB. Launches of the fleet run."""
+    from vcm_ts_tpu_torch.codec.engine import IntraCodec, VideoCodec
+    from vcm_ts_tpu_torch.models.dmc import make_dpb
+    from vcm_ts_tpu_torch.ops import cuda_build
+    from vcm_ts_tpu_torch.utils.weights import make_dmc, make_intra
+
+    plain = (IntraCodec(make_intra("cuda")), VideoCodec(make_dmc("cuda")))
+    fleet = tuple(type(c)(copy.deepcopy(c.model)) for c in plain)
+    for c in plain + fleet:
+        c.update()
+    for c in fleet:
+        c.set_fleet_sharding(["cuda:0", "cuda:0"])
+    frames = [torch.cat([f, f]) for f in moving_frames(2, H, W, seed=12)]
+    iq = np.asarray(SERVE_IQ, np.float32).reshape(-1, 1, 1, 1)
+    pq = np.asarray(SERVE_PQ, np.float32).reshape(-1, 1, 1, 1)
+    res = {}
+    for tag, (ic, vc) in (("plain", plain), ("fleet", fleet)):
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        t = time.perf_counter()
+        i_streams = ic.compress_batch(frames[0], iq)
+        recon = ic.decompress_batch(i_streams, H, W, iq)
+        dpb = make_dpb(torch.clamp(recon, 0, 1))
+        enc = vc.compress_batch(frames[1], dpb, pq, pq, True)
+        dec = vc.decompress_batch(dpb, enc["bit_streams"], H, W, pq, pq,
+                                  True)
+        torch.cuda.synchronize()
+        res[tag] = {"s": time.perf_counter() - t, "streams": i_streams
+                    + enc["bit_streams"], "recon": recon,
+                    "dpb": dec["dpb"], "enc_dpb": enc["dpb"],
+                    "launches": dict(cuda_build.LAUNCHES)}
+    a, b = res["plain"], res["fleet"]
+    same = {"streams": [x == y for x, y in zip(a["streams"], b["streams"])],
+            "I recon": torch.equal(a["recon"], b["recon"]),
+            **{f"DPB {k}": torch.equal(a["dpb"][k], b["dpb"][k])
+               for k in a["dpb"]},
+            **{f"encoder DPB {k}": torch.equal(b["enc_dpb"][k], b["dpb"][k])
+               for k in a["dpb"]}}
+    if not all(v if isinstance(v, bool) else all(v)
+               for v in same.values()):
+        raise AssertionError(f"fleet against the unsharded batch: {same}")
+    _need(b["launches"], CODEC_KERNELS, "fleet")
+    return {"plain_s": a["s"], "fleet_s": b["s"],
+            "bytes": sum(len(x) for x in a["streams"]),
+            "launches": b["launches"]}
+
+
+def run_parallel(out_dir, smi, evaluation):
+    """Phase 12: data-parallel and FSDP training, trainer_multi, the
+    harness's rank split and fleet serving on the card, with gates."""
+    from vcm_ts_tpu_torch.models.dmc import DMC
+    from vcm_ts_tpu_torch.parallel.spawn import run_ranks
+    from vcm_ts_tpu_torch.train.checkpoint import CheckPointer
+    from vcm_ts_tpu_torch.utils.weights import make_dmc
+
+    t_phase = time.perf_counter()
+    j = os.path.join
+    out = {}
+    # the ranks are processes of their own: hand them the memory that
+    # this process's allocator still caches from the earlier phases
+    torch.cuda.empty_cache()
+    # 12.1: one NCCL rank: the plain step, DP and FSDP from one state
+    seq4 = _par_batch([0])
+    spec = {"seq": seq4, "noise": _par_noise(make_dmc("cuda"), seq4),
+            "modes": ["plain", "dp", "fsdp"]}
+    t = time.perf_counter()
+    one = run_ranks(par_steps, 1, spec, backend="nccl", device="cuda",
+                    timeout=300)[0]["result"]["modes"]
+    out["nccl1_s"] = time.perf_counter() - t
+    out["nccl1"] = {m: {k: one[m][k] for k in ("wall_ms", "peak_bytes",
+                                                "launches", "reduce_ms")}
+                    for m in one}
+    for m in ("dp", "fsdp"):
+        _need(one[m]["launches"], TRAIN_KERNELS, f"1-rank NCCL {m} step")
+        out["nccl1"][m]["err"] = _par_gate(one[m], one["plain"],
+                                           f"1-rank NCCL {m} vs plain")
+    say("[parallel] 1 NCCL rank, phase 8's cascade step (4x256x256, "
+        "p_frames 2, f32): " + "; ".join(
+            f"{m} wall {v['wall_ms']:.1f} ms, peak "
+            f"{v['peak_bytes'] / 2**30:.2f} GiB"
+            + (f", vs plain {v['err']}" if "err" in v else "")
+            for m, v in out["nccl1"].items())
+        + f" ({out['nccl1_s']:.1f} s; {smi})")
+
+    # 12.2-12.4: two gloo ranks sharing the card
+    seq8 = _par_batch([0, 4])
+    spec8 = {"seq": seq8, "noise": _par_noise(make_dmc("cuda"), seq8),
+             "modes": ["dp", "fsdp"], "probe": True}
+    want = par_steps(dict(spec8, modes=["plain"], probe=False))[
+        "modes"]["plain"]
+    root = j(out_dir, "parallel")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = write_loop_tree(root, PAR_STAGES)
+    ev = evaluation["root"]
+    q = [str(v) for v in Q_ANCHORS[:PAR_RATES]]
+    video_argv = ["--test_config", j(ev, "test.json"),
+                  "--i_frame_model_path", j(ev, "intra.pth"),
+                  "--model_path", j(ev, "dmc.pth"), "--rate_num",
+                  str(PAR_RATES), "--i_frame_q_scales", *q,
+                  "--p_frame_y_q_scales", *q, "--p_frame_mv_y_q_scales", *q,
+                  "--write_stream", "1", "--output_path",
+                  j(root, "video.json"), "--stream_path", j(root, "bin")]
+    trainer_argv = ["--device", "cuda", "--config-file", cfg]
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    steps = [r["result"] for r in run_ranks(
+        par_steps, 2, spec8, backend="gloo", device="cuda", timeout=300)]
+    out["gloo2_steps_s"] = time.perf_counter() - t
+    probe = steps[0]["probe"]
+    out["gloo_probe"] = probe
+    out["gloo2"] = {}
+    for m in steps[0]["modes"]:
+        v = [r["modes"][m] for r in steps]
+        out["gloo2"][m] = {
+            "wall_ms": [x["wall_ms"] for x in v],
+            "reduce_ms": [x["reduce_ms"] for x in v],
+            "peak_bytes": [x["peak_bytes"] for x in v],
+            "launches": _add_launches(*(x["launches"] for x in v)),
+            "err": [_par_gate(x, want, f"2 gloo ranks {m}, rank {i}, vs "
+                              "the 8-row step") for i, x in enumerate(v)]}
+        _need(out["gloo2"][m]["launches"], TRAIN_KERNELS,
+              f"2 gloo ranks {m}")
+    say(f"[parallel] gloo on CUDA tensors: {probe}; 2 gloo ranks sharing "
+        "the card (4 rows each) against one process on the 8 global rows: "
+        + "; ".join(f"{m} wall {v['wall_ms']} ms, reduce_gradients "
+                    f"(host-staged gloo all-reduce, not a scaling figure) "
+                    f"{v['reduce_ms']} ms, errors {v['err']}"
+                    for m, v in out["gloo2"].items())
+        + f"; the 8-row plain step {want['wall_ms']:.1f} ms ({smi})")
+    out["plain8_wall_ms"] = want["wall_ms"]
+
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = [r["result"] for r in run_ranks(
+        par_jobs, 2, trainer_argv, video_argv, backend="gloo",
+        device="cuda", timeout=600)]
+    out["gloo2_jobs_s"] = time.perf_counter() - t
+    tr = [r["trainer"] for r in ranks]
+    epochs = tr[0]["record"]["epochs"]
+    if [e["stage"] for e in epochs] != [0, 0]:
+        raise AssertionError(f"trainer_multi: epochs {epochs}")
+    for e in range(len(epochs)):
+        m = DMC(device="cpu")
+        CheckPointer().load(m, path=j(root, "run",
+                                      f"model_epoch_{e:03d}.pt"))
+    # frames/s of the global batch by each rank's clock: rank 0's second
+    # epoch starts after its eval and checkpoint, rank 1's while rank 0 is
+    # still in them, so the two bracket the rate
+    out["trainer"] = {
+        "s": [x["s"] for x in tr], "epochs": epochs,
+        "frames_per_s": [[e["frames"] / e["train_s"]
+                          for e in x["record"]["epochs"]] for x in tr],
+        "launches": _add_launches(*(x["launches"] for x in tr))}
+    _need(out["trainer"]["launches"], TRAIN_KERNELS, "trainer_multi")
+    say(f"[parallel] trainer_multi, 2 gloo ranks on the card, phase 10's "
+        f"tree, all/cascade x2: frames/s of the global batch per epoch by "
+        f"rank 0's and rank 1's clocks {_g3(out['trainer']['frames_per_s'][0])}"
+        f" / {_g3(out['trainer']['frames_per_s'][1])}; rank 0's "
+        f"{len(epochs)} checkpoints load strict; launches "
+        f"{out['trainer']['launches']} ({smi})")
+
+    vr = [r["video"] for r in ranks]
+    for rate in range(PAR_RATES):
+        for f in range(EVAL_FRAMES):
+            a = j(ev, "seq_bin", "images", str(rate), f"{f}.bin")
+            b = j(root, "bin", "images", str(rate), f"{f}.bin")
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                if fa.read() != fb.read():
+                    raise AssertionError(f"test_video ranks: rate {rate} "
+                                         f"frame {f} .bin differs from "
+                                         "phase 9's one-process run")
+    out["video"] = {"s": [x["s"] for x in vr],
+                    "launches": _add_launches(*(x["launches"] for x in vr))}
+    _need(out["video"]["launches"], CODEC_KERNELS, "test_video ranks")
+    say(f"[parallel] test_video, 2 ranks (tasks[rank::2]) over phase 9's "
+        f"{EVAL_FRAMES} 1088x1920 frames, {PAR_RATES} rate points: every "
+        f".bin equals phase 9's one-process run; {out['video']['s']} s "
+        f"({smi})")
+
+    out["fleet"] = run_fleet()
+    say(f"[parallel] fleet over [cuda:0, cuda:0], I + P at N=2 "
+        f"1088x1920: streams, recon and DPB equal the unsharded batch; "
+        f"{out['fleet']['fleet_s']:.2f} s against "
+        f"{out['fleet']['plain_s']:.2f} s ({smi})")
+    out["launches"] = _add_launches(
+        *(out["nccl1"][m]["launches"] for m in ("dp", "fsdp")),
+        *(v["launches"] for v in out["gloo2"].values()),
+        out["trainer"]["launches"], out["video"]["launches"],
+        out["fleet"]["launches"])
+    shutil.rmtree(root)
+    shutil.rmtree(ev)  # phase 9's tree
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def _g3(xs):
     return "[" + ", ".join(f"{x:.3g}" for x in xs) + "]"
 
@@ -2788,16 +3199,19 @@ def main():
     perceptual = run_perceptual(out_dir, smi, train)
     say(f"[phase 11] perceptual {perceptual['phase_s']:.1f} s; total so far "
         f"{time.perf_counter() - t_start:.1f} s ({smi})")
+    parallel = run_parallel(out_dir, smi, evaluation)
+    say(f"[phase 12] parallel {parallel['phase_s']:.1f} s; total so far "
+        f"{time.perf_counter() - t_start:.1f} s ({smi})")
 
     # one entry per kernel: its first (main-path) shape, and its launches
     # summed over the main paths: the two GOPs, the two batched serving
     # runs, the warm VCM pipeline run, one cascade train step, the eval
     # harness's sequential run, the trainer's run, one cascade step with
-    # the perceptual loss and the trainer's perceptual run (each read with
-    # the counts reset just before it)
+    # the perceptual loss, the trainer's perceptual run, and phase 12's
+    # ranks (each read with the counts reset just before it)
     paths = gops + serving["batch"] + [vcm, train, evaluation, loop,
                                        perceptual["step"],
-                                       perceptual["loop"]]
+                                       perceptual["loop"], parallel]
     kernels = []
     for name in ("warp", "warp_bwd", "subpel_conv1x1",
                  "pixel_shuffle_relayout", "space_to_depth", "warp_twopass"):
@@ -2815,7 +3229,8 @@ def main():
                    "bench": benches, "gops": gops, "serving": serving,
                    "kernels_batched": batched, "vcm": vcm,
                    "train": train, "eval": evaluation, "trainloop": loop,
-                   "perceptual": perceptual, "kernels": kernels}, f,
+                   "perceptual": perceptual, "parallel": parallel,
+                   "kernels": kernels}, f,
                   indent=1, default=float)
     say(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s "
         f"({smi})")

@@ -363,7 +363,8 @@ def test_plot_metrics_match_jax(tmp_path):
 
 
 def test_unported_branches_raise(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    # --fleet runs (tests/test_torch_parallel.py) with --batch_rates only
+    with pytest.raises(SystemExit, match="--batch_rates"):
         ttv.main(["--test_config", "x.json", "--output_path", "o.json",
                   "--fleet", "1", "--device", "cpu"])
     # the Faster-RCNN branch runs (tests/test_torch_rcnn.py) but its

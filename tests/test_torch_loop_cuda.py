@@ -159,10 +159,13 @@ def test_loop_on_card_matches_cpu(card, tree, tmp_path, monkeypatch):
     for dev in ("cpu", "cuda"):
         cpu_gen = torch.Generator().manual_seed(7)
 
-        def noise(model, x, generator, _g=cpu_gen):
+        def noise(model, x, generator, mesh=None, _g=cpu_gen):
+            assert mesh is None
             return tuple(t.to(x.device) for t in draw(model, x.cpu(), _g))
 
-        def cascade(model, xs, generator, accum_steps=1, _g=cpu_gen):
+        def cascade(model, xs, generator, accum_steps=1, mesh=None,
+                    _g=cpu_gen):
+            assert mesh is None
             return [tuple(t.to(xs.device) for t in n) for n in draw_cascade(
                 model, xs.cpu(), _g, accum_steps)]
 

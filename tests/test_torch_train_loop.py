@@ -134,12 +134,13 @@ def patch_jax_noise(monkeypatch, seed):
             return fn(*a, **k)
         return run
 
-    def draw_noise(model, x, generator):
+    def draw_noise(model, x, generator, mesh=None):
+        assert mesh is None
         state["key"], sub = jax.random.split(state["key"])
         return _jax_noise(sub, model.noise_shapes(*x.shape[:3]))
 
-    def draw_cascade_noise(model, xs, generator, accum_steps=1):
-        assert accum_steps == 1
+    def draw_cascade_noise(model, xs, generator, accum_steps=1, mesh=None):
+        assert accum_steps == 1 and mesh is None
         state["key"], key = jax.random.split(state["key"])
         out = []
         for x in xs:

@@ -40,6 +40,7 @@ that made its inputs (`stream.wait_stream`).
 from __future__ import annotations
 
 import contextlib
+import copy
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -52,6 +53,7 @@ from ..entropy.coder import EntropyCoder
 from ..entropy.gaussian import GaussianCoder
 from ..models import common as cm
 from ..ops.layers import SubpelConv
+from ..parallel.mesh import SPATIAL_WAITS
 from ..utils.device import resolve_device, set_codec_numerics, to_device
 from . import bitstream as bs
 
@@ -184,8 +186,84 @@ def run_sessions(fns, device, warmup=None) -> tuple:
         return time.perf_counter() - t0, results
 
 
+def _on_streams(fns, streams) -> list:
+    """fn() of each of fns at once, each on its own thread and, where its
+    stream is a CUDA stream (None on the CPU), on that stream, ordered
+    after the caller's current stream of its device and synchronized at
+    its end; the results in order."""
+    after = {s.device: torch.cuda.current_stream(s.device) for s in streams
+             if s is not None}
+
+    def run(fn, stream):
+        with torch.no_grad(), contextlib.ExitStack() as stack:
+            if stream is not None:
+                stack.enter_context(torch.cuda.device(stream.device))
+                stream.wait_stream(after[stream.device])
+                stack.enter_context(torch.cuda.stream(stream))
+            out = fn()
+            if stream is not None:
+                stream.synchronize()
+            return out
+
+    with ThreadPoolExecutor(max_workers=len(fns)) as pool:
+        futures = [pool.submit(run, fn, s) for fn, s in zip(fns, streams)]
+        return [f.result() for f in futures]
+
+
+def _take(v, rows: slice, n: int, device):
+    """Rows `rows` of a batched argument with n rows (a tensor, array, or
+    a dict of them) on `device`; anything else (a float q scale, a flag)
+    as it is."""
+    if isinstance(v, dict):
+        return {k: _take(x, rows, n, device) for k, x in v.items()}
+    if isinstance(v, torch.Tensor) and v.dim() and v.shape[0] == n:
+        return v[rows].to(device)
+    if isinstance(v, list) and len(v) == n or (
+            isinstance(v, np.ndarray) and v.ndim and v.shape[0] == n):
+        return v[rows]
+    return v
+
+
+def _gather(parts: list, device):
+    """The groups' results joined back in row order: tensors concatenated
+    on `device` (a 0-dim total, as forward's "bit", summed), arrays and
+    lists concatenated, dicts and tuples per entry."""
+    first = parts[0]
+    if isinstance(first, dict):
+        return {k: _gather([p[k] for p in parts], device) for k in first}
+    if isinstance(first, torch.Tensor):
+        for p in parts:
+            if p.is_cuda:  # made on a replica's stream, read on this one
+                p.record_stream(torch.cuda.current_stream(p.device))
+        parts = [p.to(device) for p in parts]
+        return torch.stack(parts).sum(0) if not first.dim() else \
+            torch.cat(parts)
+    if isinstance(first, np.ndarray):
+        return np.concatenate(parts)
+    if isinstance(first, tuple):
+        return tuple(_gather(list(p), device) for p in zip(*parts))
+    if isinstance(first, list):
+        return [x for p in parts for x in p]
+    return first
+
+
 class _Engine:
-    """What both codecs share: device placement, numerics, symbol IO."""
+    """What both codecs share: device placement, numerics, symbol IO, and
+    fleet serving.
+
+    Fleet serving (`set_fleet_sharding`, the port's _FleetShardingMixin of
+    the JAX engine): each batched call (compress_batch, decompress_batch,
+    forward) splits its N stream rows into one group of N / D rows per
+    device of the fleet. Each device holds a replica of the codec (its own
+    copy of the model) and runs its group on its own thread and CUDA
+    stream; host rANS stays per stream. Rows code as if alone
+    (ops/rowwise.py), so every stream's bytes and recon equal the
+    unsharded call's. A call whose N does not tile the fleet runs
+    unsharded, as the JAX engine's shard_batch / _put leave such a
+    leading dimension whole."""
+
+    _TABLES = ("y_table", "z_table")
+    _fleet = None
 
     def __init__(self, model, distribution: str, device):
         self.device = resolve_device(device)
@@ -245,10 +323,46 @@ class _Engine:
         with _pool(n) as pool:
             return _map(pool, self._encode_host, rows)
 
+    # ----------------------------------------------------------------- fleet
+    def set_fleet_sharding(self, devices) -> int:
+        """Serve batched calls over `devices` (e.g. ["cuda:0", "cuda:1"];
+        a device may repeat: its replicas then share it, each on its own
+        stream). Returns the fleet's size."""
+        devices = [resolve_device(d) for d in devices]
+        self._fleet = [type(self)(copy.deepcopy(self.model), device=d)
+                       for d in devices]
+        # one stream a replica for every call: the caching allocator keeps
+        # its blocks per stream, so a new stream per call would hold more
+        # device memory at each call
+        self._fleet_streams = [torch.cuda.Stream(d) if d.type == "cuda"
+                               else None for d in devices]
+        return len(self._fleet)
+
+    def set_spatial_sharding(self, *args, **kwargs):
+        raise NotImplementedError(SPATIAL_WAITS)
+
+    def _fleet_call(self, n: int, method: str, *args):
+        """getattr(replica, method)(*its rows of args) on every replica,
+        joined in row order; None when no fleet is set or n rows do not
+        tile it (the call then runs unsharded)."""
+        fleet = self._fleet
+        if not fleet or n % len(fleet):
+            return None
+        k = n // len(fleet)
+        for replica in fleet:  # tables built by update() after the split
+            for name in self._TABLES:
+                setattr(replica, name, getattr(self, name))
+        fns = [lambda r=r, i=i: getattr(r, method)(
+            *(_take(a, slice(i * k, (i + 1) * k), n, r.device) for a in args))
+            for i, r in enumerate(fleet)]
+        return _gather(_on_streams(fns, self._fleet_streams), self.device)
+
 
 class VideoCodec(_Engine):
     """DMC P-frames. Stream order per frame: mv_z, mv_y step 0, mv_y step 1,
     z, y step 0, y step 1 — six planes in one rANS stream."""
+
+    _TABLES = ("y_table", "z_table", "z_mv_table")
 
     def __init__(self, model, device="cuda"):
         super().__init__(model, "laplace", device)
@@ -294,6 +408,10 @@ class VideoCodec(_Engine):
     # ---------------------------------------------------------------- forward
     @torch.no_grad()
     def forward(self, x, dpb, mv_y_q_scale, y_q_scale, is_first_p=False):
+        out = self._fleet_call(len(x), "forward", x, dpb, mv_y_q_scale,
+                               y_q_scale, is_first_p)
+        if out is not None:
+            return out
         return self.model(self._frame(x), dpb, mv_y_q_scale, y_q_scale,
                           is_first_p)
 
@@ -369,6 +487,10 @@ class VideoCodec(_Engine):
 
         Returns {"bit_streams": [bytes] * N, "dpb": batched dpb}."""
         self._check_tables()
+        out = self._fleet_call(len(x), "compress_batch", x, dpb,
+                               mv_y_q_scale, y_q_scale, is_first_p)
+        if out is not None:
+            return out
         out = self._compress_planes(x, dpb, mv_y_q_scale, y_q_scale,
                                     is_first_p)
         return {"bit_streams": self._encode_rows(self._pull(out).wait()),
@@ -453,6 +575,11 @@ class VideoCodec(_Engine):
         N decompress() calls; each stream has its own coder, and the N rANS
         reads of a plane run on a thread pool."""
         self._check_tables()
+        out = self._fleet_call(len(streams), "decompress_batch", dpb,
+                               list(streams), height, width, mv_y_q_scale,
+                               y_q_scale, is_first_p, return_symbols)
+        if out is not None:
+            return out
         coders = _decoders(streams)
         z_idx = self._z_idx(height, width)
         with _pool(len(coders)) as pool:
@@ -539,6 +666,9 @@ class IntraCodec(_Engine):
     @torch.no_grad()
     def forward(self, x, q_scale):
         """Entropy-estimated path (no real bitstream)."""
+        out = self._fleet_call(len(x), "forward", x, q_scale)
+        if out is not None:
+            return out
         return self.model(self._frame(x), q_scale)
 
     def _stage1(self, z_hat, q_scale):
@@ -584,6 +714,9 @@ class IntraCodec(_Engine):
         one rANS stream per row, byte-identical to compress() of each row
         alone."""
         self._check_tables()
+        out = self._fleet_call(len(x), "compress_batch", x, q_scale)
+        if out is not None:
+            return out
         return self._encode_rows(
             _Pull(self._compress_planes(x, q_scale)).wait())
 
@@ -597,6 +730,10 @@ class IntraCodec(_Engine):
         """Decode N streams in lockstep through batched stages; returns the
         decoded frames (N, H, W, 3), identical to N decompress() calls."""
         self._check_tables()
+        out = self._fleet_call(len(streams), "decompress_batch",
+                               list(streams), height, width, q_scale)
+        if out is not None:
+            return out
         coders = _decoders(streams)
         zh, zw = bs.get_downsampled_shape(height, width, 64)
         z_idx = be.build_indexes((1, zh, zw, self.model.N))

@@ -1,0 +1,3 @@
+"""Multi-process training and serving on torch.distributed (the port's
+counterpart of vcm_ts_tpu/parallel/): `mesh` for data parallelism, `tensor`
+for fully sharded data parallelism."""

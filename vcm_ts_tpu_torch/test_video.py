@@ -14,9 +14,13 @@ output JSON, written as the JAX harness writes it.
 
 One process drives one device and runs the tasks one after another (or,
 with --batch_rates, all rate points of a sequence through the batch axis of
-every stage). The JAX harness's --fleet (rate rows sharded over a device
-mesh) and its multi-process task split wait for the port's parallel/
-package (ROADMAP.md, Queue 1 item 6): --fleet raises.
+every stage). Under torchrun (WORLD_SIZE > 1) each rank takes every
+world-th task (tasks[rank::world]) on cuda:LOCAL_RANK and writes its own
+<output_path>.rankK with no gather, as the JAX harness does. --fleet (with
+--batch_rates) splits each batched call's rate rows over this process's
+devices (codec/engine.py's fleet serving; fleet_mesh_size picks how many),
+and with one device prints that fleet serving is disabled and runs as
+before.
 
 Without a .pth the codecs are the seeded damped inits of utils/weights
 (IntraNoAR N=192, DMC 64/64/96), and the harness says so.
@@ -41,11 +45,9 @@ from .ops.msssim import ms_ssim, psnr as psnr_fn
 from .utils import weights
 from .utils.common import (create_folder, dump_json, generate_log_json,
                            interpolate_log, str2bool)
+from .parallel import mesh as pm
 from .utils.device import resolve_device, to_device
 from .utils.profiling import HostTimers
-
-FLEET_WAITS = ("--fleet (rate rows sharded over a device mesh) waits for "
-               "the port's parallel/ package, ROADMAP.md Queue 1 item 6")
 
 
 def parse_args(argv=None):
@@ -65,7 +67,9 @@ def parse_args(argv=None):
     parser.add_argument("--worker", "-w", type=int, default=1)
     parser.add_argument("--fleet", type=str2bool, nargs="?",
                         const=True, default=False,
-                        help="not available in the port: " + FLEET_WAITS)
+                        help="with --batch_rates: one rate-point row group "
+                             "per local device (codec/engine.py fleet "
+                             "serving)")
     parser.add_argument("--batch_rates", type=str2bool, nargs="?",
                         const=True, default=False,
                         help="run all rate points of a sequence through one "
@@ -319,10 +323,40 @@ def run_test_batched(video_codec, i_codec, tasks, verbose=0):
             for r in range(n)]
 
 
+def fleet_mesh_size(tasks, n_local_devices):
+    """(group_rows, fleet devices) for --fleet serving (the JAX harness's
+    rule): the fleet must tile every batched group's rows, and group
+    sizes are not always rate_num (a multi-process run strides the task
+    list), so it takes the gcd of this process's per-(dataset, sequence)
+    row counts, capped by the local device count."""
+    import math
+
+    rows = 0
+    group_sizes = {}
+    for task in tasks:
+        key = (task["ds_name"], task["video_path"])
+        group_sizes[key] = group_sizes.get(key, 0) + 1
+    for size in group_sizes.values():
+        rows = math.gcd(rows, size)
+    if rows == 0:  # no tasks on this rank: gcd(0, n) = n would lie
+        return 0, 1
+    return rows, math.gcd(rows, n_local_devices)
+
+
+def _local_devices(device) -> list:
+    """This process's devices: its own card under torchrun (one rank per
+    device), every card of the host in one process, or the CPU."""
+    if device.type != "cuda":
+        return [device]
+    if pm.get_world_size() > 1:
+        return [pm.local_device(device)]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 def build_codecs(args):
     """The engines, once for every task: .pth weights where given, else
     the seeded damped inits."""
-    device = resolve_device(args.device)
+    device = pm.local_device(args.device)
 
     def model(make, path, name):
         m = make(device)
@@ -358,9 +392,10 @@ def main(argv=None, timers=None):
     wall time under "i_frame" or "p_frame"."""
     begin_time = time.time()
     args = parse_args(argv)
-    if args.fleet:
-        raise NotImplementedError(FLEET_WAITS)
+    if args.fleet and not args.batch_rates:
+        raise SystemExit("--fleet requires --batch_rates")
     resolve_device(args.device)
+    pm.initialize_distributed(device=args.device)
 
     with open(args.test_config) as f:
         config = json.load(f)
@@ -432,6 +467,27 @@ def main(argv=None, timers=None):
                     create_folder(task["decoded_frame_folder"])
                 count_frames += task["frame_num"]
                 tasks.append(task)
+
+    # multi-process sweeps: each rank runs every world-th task and writes
+    # its own <output_path>.rankK holding only those (no gather)
+    world = pm.get_world_size()
+    if world > 1:
+        tasks = tasks[pm.get_rank()::world]
+        args.output_path = f"{args.output_path}.rank{pm.get_rank()}"
+
+    if args.fleet:
+        devices = _local_devices(pm.local_device(args.device))
+        rows, n_dev = fleet_mesh_size(tasks, len(devices))
+        if n_dev > 1:
+            for codec in (i_codec, video_codec):
+                if codec is not None:
+                    codec.set_fleet_sharding(devices[:n_dev])
+            print(f"fleet serving over {n_dev} local devices "
+                  f"({rows}-row rate groups)")
+        else:
+            print("fleet serving disabled: group row count "
+                  f"({rows}) shares no factor with the local device "
+                  f"count ({len(devices)})")
 
     results = []
     if args.batch_rates:

@@ -5,7 +5,10 @@ The port's own format: `<save_dir>/<name>.pt`, a torch.save of {"params":
 the model's state_dict, "opt_state": the StageOptimizer's state_dict (step
 count and moments) or None, "extra": the keyword arguments of save()}. As
 in the JAX package, `last_checkpoint.txt` in save_dir names the newest
-file, and on load that tag wins over an explicit path (use_latest).
+file, and on load that tag wins over an explicit path (use_latest). In a
+multi-process run every rank reads and rank 0 alone writes; the file holds
+whole tensors whether the run was one process, data parallel or FSDP, so
+each loads strict into the others.
 
 Loading takes the port's .pt files and reference DCVC-HEM .pth state
 dicts (utils/weights). The JAX package's own .ckpt files are flax msgpack:
@@ -34,17 +37,22 @@ class CheckPointer:
         self.logger = logger or logging.getLogger("CORE")
 
     # ------------------------------------------------------------------ save
-    def save(self, name: str, model: torch.nn.Module, optimizer=None,
-             **kwargs):
+    def save(self, name: str, model, optimizer=None, **kwargs):
+        """Write <name>.pt: `model` a module or its whole state_dict,
+        `optimizer` a StageOptimizer, its state_dict() or None. Under
+        FSDP pass the dicts that every rank gathered
+        (parallel/mesh.host_copy, StageOptimizer.state_dict), from rank 0
+        alone."""
         if not self.save_dir:
             return
         os.makedirs(self.save_dir, exist_ok=True)
         path = os.path.join(self.save_dir, f"{name}.pt")
+        params = model if isinstance(model, dict) else model.state_dict()
+        if optimizer is not None and not isinstance(optimizer, dict):
+            optimizer = optimizer.state_dict()
         torch.save({
-            "params": {k: v.detach().cpu() for k, v in
-                       model.state_dict().items()},
-            "opt_state": (optimizer.state_dict() if optimizer is not None
-                          else None),
+            "params": {k: v.detach().cpu() for k, v in params.items()},
+            "opt_state": optimizer,
             "extra": dict(kwargs),
         }, path)
         self.tag_last_checkpoint(path)

@@ -16,13 +16,24 @@ parameters only, as optax's multi_transform applies the chain to them
 alone). A frozen parameter gets a zero update: no moments, no decay
 (optax's set_to_zero), so it stays bit-identical. Moments are fresh for
 each stage (`make_stage_optimizer`).
+
+Under FSDP (parallel/tensor.shard_params_fsdp, before the optimizer is
+built) the parameters, their gradients and the moments are DTensor shards,
+except the few the step reads outside the forward, which stay whole: each
+operation then runs once on the shards and once on the whole tensors
+(torch's foreach ops take no mixed lists), the global norm is one value on
+every rank, and `state_dict` / `load_state_dict` gather and split whole
+moments (collectives every rank joins).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
+
+from ..parallel.mesh import full_tensor
 
 # Top-level DMC parameter groups (the reference's dcvc_hem.py:23-42)
 INTER_DIST_MODULES = frozenset({
@@ -87,9 +98,24 @@ class StageOptimizer:
         """The trainable parameters' names, in the model's order."""
         return list(self.params)
 
+    @property
+    def sharded(self) -> bool:
+        """Whether FSDP shards the parameters (DTensors)."""
+        return any(_is_dtensor(p) for p in self.params.values())
+
     def _clip(self, grads: list) -> list:
-        """optax.clip_by_global_norm: g / norm * max where norm >= max."""
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        """optax.clip_by_global_norm: g / norm * max where norm >= max.
+        Under FSDP the shards' squares are summed here and all-reduced,
+        so the norm is one plain value on every rank."""
+        shards = [g for g in grads if _is_dtensor(g)]
+        if shards:
+            sq = sum(torch.sum(g.to_local() * g.to_local()) for g in shards)
+            dist.all_reduce(sq, group=shards[0].device_mesh.get_group())
+            sq = sq + sum(torch.sum(g * g) for g in grads
+                          if not _is_dtensor(g))
+        else:
+            sq = sum(torch.sum(g * g) for g in grads)
+        norm = torch.sqrt(sq)
         keep = norm < self.grad_clip_norm
         return [torch.where(keep, g, g / norm.to(g.dtype)
                             * self.grad_clip_norm) for g in grads]
@@ -98,7 +124,8 @@ class StageOptimizer:
         """The step count and both moments, on the CPU (a checkpoint's
         "opt_state")."""
         def host(d):
-            return {n: t.detach().cpu().clone() for n, t in d.items()}
+            return {n: full_tensor(t).detach().cpu().clone()
+                    for n, t in d.items()}
 
         return {"count": self.count, "mu": host(self.mu), "nu": host(self.nu)}
 
@@ -111,8 +138,9 @@ class StageOptimizer:
             raise ValueError("optimizer state is for other trainable "
                              "parameters than this stage's")
         for n in self.mu:
-            self.mu[n].copy_(state["mu"][n])
-            self.nu[n].copy_(state["nu"][n])
+            for mine, whole in ((self.mu[n], state["mu"][n]),
+                                (self.nu[n], state["nu"][n])):
+                mine.copy_(_like(mine, whole))
         self.count = int(state["count"])
 
     @torch.no_grad()
@@ -130,6 +158,13 @@ class StageOptimizer:
         c1 = float(np.float32(1.0) - np.float32(B1) ** np.float32(t))
         c2 = float(np.float32(1.0) - np.float32(B2) ** np.float32(t))
         mu, nu = list(self.mu.values()), list(self.nu.values())
+        kinds = [_is_dtensor(p) for p in ps]
+        for kind in sorted(set(kinds)):
+            pick = [i for i, k in enumerate(kinds) if k == kind]
+            self._adamw(*([v[i] for i in pick] for v in (ps, gs, mu, nu)),
+                        c1, c2)
+
+    def _adamw(self, ps, gs, mu, nu, c1, c2) -> None:
         torch._foreach_mul_(mu, B1)
         torch._foreach_add_(mu, torch._foreach_mul(gs, 1.0 - B1))
         g2 = torch._foreach_mul(gs, gs)
@@ -144,6 +179,25 @@ class StageOptimizer:
         torch._foreach_add_(u, torch._foreach_mul(ps, WEIGHT_DECAY))
         torch._foreach_mul_(u, -self.lr)
         torch._foreach_add_(ps, u)
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _like(mine: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
+    """`whole` (a host tensor) on mine's device, split as mine is."""
+    whole = whole.to(mine.device, mine.dtype)
+    if not _is_dtensor(mine):
+        return whole
+    from torch.distributed.tensor import distribute_tensor
+
+    # every rank holds the whole tensor: take this rank's shard, no
+    # communication
+    return distribute_tensor(whole, mine.device_mesh, mine.placements,
+                             src_data_rank=None)
 
 
 def make_stage_optimizer(model: nn.Module, mode: str, lr: float,

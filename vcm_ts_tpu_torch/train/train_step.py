@@ -30,6 +30,20 @@ dense layers and SE means take the whole batch (the JAX train step gives
 no row-exactness either). Gradients are taken for the trainable
 parameters only (torch.autograd.grad), so a frozen module's weight
 gradients are never computed; its activations' are, where BPTT needs them.
+
+Data parallelism (`mesh`, the "data" DeviceMesh of parallel/mesh.py): each
+rank runs its own rows, and the step averages the gradients over the ranks
+once, before clipping and the update (parallel/mesh.reduce_gradients; with
+accum_steps, the sum over the groups is reduced, then divided by G), and
+averages FrameAux, so every rank holds the global values, as the JAX step's
+replicated outputs are. The noise of a rank is its rows of the global
+batch's noise (`draw_noise(..., mesh=)`), so a data-parallel step equals a
+one-process step on the global rows. Under FSDP (the model sharded by
+parallel/tensor.shard_params_fsdp) the sharded parameters are not leaves
+of the graph: the step takes gradients with loss.backward() (all
+parameters) and reads .grad, fully_shard reduce-scatters them (once per
+step: the groups before the last skip the reduction), and only the few
+whole parameters go through reduce_gradients.
 """
 
 from __future__ import annotations
@@ -45,6 +59,8 @@ from torch.utils.checkpoint import checkpoint
 from ..models.dmc import make_dpb
 from ..ops import rowwise
 from ..ops.math import uniform_noise
+from ..parallel import mesh as pm
+from ..parallel.tensor import is_sharded
 from ..utils.precision import cast_for_compute
 
 
@@ -87,23 +103,27 @@ def _device(model):
     return next(model.parameters()).device
 
 
-def draw_noise(model, x, generator: torch.Generator):
+def draw_noise(model, x, generator: torch.Generator, mesh=None):
     """The four U(-0.5, 0.5) tensors DMC.forward takes for frame batch x
-    (N, H, W, 3): y_res, mv_y_res, z, mv_z, in x's dtype on x's device."""
+    (N, H, W, 3): y_res, mv_y_res, z, mv_z, in x's dtype on x's device.
+    With a data mesh, x holds this rank's rows: the noise of the global
+    batch (N times the ranks) is drawn, and this rank's rows kept."""
     n, h, w, _ = x.shape
-    return tuple(uniform_noise(s, generator, x.dtype, x.device)
-                 for s in model.noise_shapes(n, h, w))
+    world = 1 if mesh is None else mesh.size()
+    noise = tuple(uniform_noise(s, generator, x.dtype, x.device)
+                  for s in model.noise_shapes(n * world, h, w))
+    return noise if world == 1 else pm.global_batch(noise, mesh)
 
 
 def draw_cascade_noise(model, xs, generator: torch.Generator,
-                       accum_steps: int = 1):
+                       accum_steps: int = 1, mesh=None):
     """A cascade step's noise for xs (p_frames, N, H, W, 3): per frame, or,
     with accum_steps G > 1, per group (G lists of per-frame noise for the
     group's N / G rows)."""
     if accum_steps == 1:
-        return [draw_noise(model, x, generator) for x in xs]
+        return [draw_noise(model, x, generator, mesh) for x in xs]
     rows = xs.shape[1] // accum_steps
-    return [[draw_noise(model, x[:rows], generator) for x in xs]
+    return [[draw_noise(model, x[:rows], generator, mesh) for x in xs]
             for _ in range(accum_steps)]
 
 
@@ -121,11 +141,16 @@ def frame_loss(model, x, target, dpb, *, lambdas, dist_lambda, pl_lambda,
     params = None
     mv_q, y_q = model.mv_y_q_scale, model.y_q_scale
     if compute_dtype is not None:
-        params = cast_for_compute(model, compute_dtype)
         x = x.to(compute_dtype)
         dpb = _cast_tree(dpb, compute_dtype)
         noise = _cast_tree(noise, compute_dtype)
-        mv_q, y_q = params["mv_y_q_scale"], params["y_q_scale"]
+        if is_sharded(model):
+            # fully_shard gathers the weights in compute_dtype (its
+            # MixedPrecisionPolicy); the q-scale tables it leaves whole
+            mv_q, y_q = mv_q.to(compute_dtype), y_q.to(compute_dtype)
+        else:
+            params = cast_for_compute(model, compute_dtype)
+            mv_q, y_q = params["mv_y_q_scale"], params["y_q_scale"]
     if anchor_start is not None:
         sl = slice(anchor_start, anchor_start + anchor_count)
         mv_q, y_q, lambdas = mv_q[sl], y_q[sl], lambdas[sl]
@@ -141,6 +166,7 @@ def frame_loss(model, x, target, dpb, *, lambdas, dist_lambda, pl_lambda,
         out = model(*args, **kwargs)
     else:
         out = functional_call(model, params, args, kwargs)
+    if compute_dtype is not None:
         # loss and metric math, and the DPB carry, in f32
         out = _map(out, lambda v: v.float() if v.dtype == compute_dtype
                    else v)
@@ -171,12 +197,33 @@ def frame_loss(model, x, target, dpb, *, lambdas, dist_lambda, pl_lambda,
     return loss.mean(), (aux, out["dpb"])
 
 
-def _grads(loss, opt):
+def _grads(loss, opt, model):
     """{name: gradient} of the optimizer's trainable parameters."""
     names = opt.names
+    if opt.sharded:
+        loss.backward()
+        return _take_grads(model, opt)
     grads = torch.autograd.grad(loss, [opt.params[n] for n in names],
                                 allow_unused=True)
     return dict(zip(names, grads))
+
+
+def _take_grads(model, opt) -> dict:
+    """The trainable parameters' .grad (what backward() left), cleared
+    from every parameter for the next step."""
+    grads = {n: opt.params[n].grad for n in opt.names}
+    for p in model.parameters():
+        p.grad = None
+    return grads
+
+
+def _sync(grads: dict, aux: FrameAux, mesh):
+    """Gradients and FrameAux averaged over the data ranks (no-op without
+    a mesh)."""
+    if mesh is None:
+        return grads, aux
+    return (pm.reduce_gradients(grads, mesh),
+            FrameAux(*pm.mean_over_ranks(list(aux), mesh)))
 
 
 def _lambdas(model, lambdas):
@@ -185,11 +232,13 @@ def _lambdas(model, lambdas):
 
 
 def make_single_frame_step(model, opt, stage, *, lambdas, dist_lambda,
-                           pl_lambda, pl_fn=None, compute_dtype=None):
+                           pl_lambda, pl_fn=None, compute_dtype=None,
+                           mesh=None):
     """Per-frame gradient step of the 'single' strategy:
     step(x, target, dpb, noise, is_first_p) -> (FrameAux, new DPB), both
     detached; the model's parameters are updated in place by `opt`
-    (train/optimizer.StageOptimizer)."""
+    (train/optimizer.StageOptimizer). With `mesh`, x, the DPB and the noise
+    hold this rank's rows (see the module docstring)."""
     lam = _lambdas(model, lambdas)
 
     def step(x, target, dpb, noise, is_first_p):
@@ -199,9 +248,10 @@ def make_single_frame_step(model, opt, stage, *, lambdas, dist_lambda,
                 pl_lambda=pl_lambda, loss_rate_keys=stage.loss_rate_keys,
                 loss_dist_key=stage.loss_dist_key, pl_fn=pl_fn, noise=noise,
                 is_first_p=is_first_p, compute_dtype=compute_dtype)
-            grads = _grads(loss, opt)
+            grads = _grads(loss, opt, model)
+        grads, aux = _sync(grads, detach_tree(aux), mesh)
         opt.step(grads)
-        return detach_tree(aux), detach_tree(new_dpb)
+        return aux, detach_tree(new_dpb)
 
     return step
 
@@ -215,7 +265,7 @@ def _mean_aux(auxes):
 
 def make_cascade_step(model, opt, stage, *, lambdas, dist_lambda, pl_lambda,
                       pl_fn=None, remat=True, compute_dtype=None,
-                      accum_steps: int = 1):
+                      accum_steps: int = 1, mesh=None):
     """Whole-chain gradient step of the 'cascade' strategy:
     step(xs, targets, dpb0, noises) -> (FrameAux, last DPB), detached; xs
     and targets (p_frames, N, H, W, 3), noises as draw_cascade_noise makes
@@ -266,9 +316,10 @@ def make_cascade_step(model, opt, stage, *, lambdas, dist_lambda, pl_lambda,
         def step(xs, targets, dpb0, noises):
             with rowwise.whole_batch():
                 loss, (aux, dpb) = chain_loss(xs, targets, dpb0, noises)
-                grads = _grads(loss, opt)
+                grads = _grads(loss, opt, model)
+            grads, aux = _sync(grads, detach_tree(aux), mesh)
             opt.step(grads)
-            return detach_tree(aux), detach_tree(dpb)
+            return aux, detach_tree(dpb)
 
         return step
 
@@ -287,16 +338,25 @@ def make_cascade_step(model, opt, stage, *, lambdas, dist_lambda, pl_lambda,
                 loss, (aux, dpb) = chain_loss(
                     xs.index_select(1, rows), targets.index_select(1, rows),
                     dpb_g, None if noises is None else noises[g], g * mb)
-                grads = _grads(loss, opt)
-            acc = grads if acc is None else {
-                name: (a if b is None else b if a is None else a + b)
-                for (name, a), b in zip(acc.items(), grads.values())}
+                if opt.sharded:
+                    # backward() sums the groups' gradients in .grad;
+                    # fully_shard reduces them after the last group only
+                    model.set_requires_gradient_sync(g == G - 1)
+                    loss.backward()
+                else:
+                    grads = _grads(loss, opt, model)
+                    acc = grads if acc is None else {
+                        name: (a if b is None else b if a is None else a + b)
+                        for (name, a), b in zip(acc.items(), grads.values())}
             auxs.append(detach_tree(aux))
             parts.append((rows, detach_tree(dpb)))
-        opt.step({name: None if v is None else v / G
-                  for name, v in acc.items()})
+        if opt.sharded:
+            acc = _take_grads(model, opt)
         # groups are contiguous anchor blocks: concatenated, anchor order
         aux = FrameAux(*[torch.cat(f) for f in zip(*auxs)])
+        acc, aux = _sync(acc, aux, mesh)
+        opt.step({name: None if v is None else v / G
+                  for name, v in acc.items()})
         dpb = {}
         for key in parts[0][1]:
             like = parts[0][1][key]
@@ -318,11 +378,12 @@ def to_f32(v, device) -> torch.Tensor:
 
 def run_single_sequence(model, step_fn, inputs, targets, stage,
                         generator: torch.Generator, i_frame_fn=None,
-                        sample_cb=None):
+                        sample_cb=None, mesh=None):
     """The reference's forward_single outer loops: for each subsequence
     start t_i, a fresh DPB from frame t_i (or i_frame_fn of it), then
     `p_frames` per-frame gradient steps. inputs/targets (N, T, H, W, 3)
-    arrays or tensors. Returns the list of FrameAux."""
+    arrays or tensors (this rank's rows, with `mesh`). Returns the list of
+    FrameAux."""
     dev = _device(model)
     t = inputs.shape[1]
     aux_list = []
@@ -334,7 +395,8 @@ def run_single_sequence(model, step_fn, inputs, targets, stage,
             x = to_f32(inputs[:, t_i + 1 + p_idx], dev)
             target = to_f32(targets[:, t_i + 1 + p_idx], dev)
             aux, dpb = step_fn(x, target, dpb,
-                               draw_noise(model, x, generator), p_idx == 0)
+                               draw_noise(model, x, generator, mesh),
+                               p_idx == 0)
             aux_list.append(aux)
             if sample_cb is not None:
                 sample_cb(aux, targets[:, t_i + 1 + p_idx], dpb["ref_frame"])
@@ -343,7 +405,7 @@ def run_single_sequence(model, step_fn, inputs, targets, stage,
 
 def run_cascade_sequence(model, step_fn, inputs, targets, stage,
                          generator: torch.Generator, accum_steps: int = 1,
-                         i_frame_fn=None, sample_cb=None):
+                         i_frame_fn=None, sample_cb=None, mesh=None):
     """forward_cascade's outer loop: one whole-chain gradient step per
     subsequence start. Returns the list of FrameAux."""
     dev = _device(model)
@@ -358,7 +420,7 @@ def run_cascade_sequence(model, step_fn, inputs, targets, stage,
                           for k in range(p_frames)])
         ts = torch.stack([to_f32(targets[:, t_i + 1 + k], dev)
                           for k in range(p_frames)])
-        noises = draw_cascade_noise(model, xs, generator, accum_steps)
+        noises = draw_cascade_noise(model, xs, generator, accum_steps, mesh)
         aux, dpb = step_fn(xs, ts, dpb, noises)
         aux_list.append(aux)
         if sample_cb is not None:
