@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: kernels, bench, GOPs,
 serving, the VCM pipeline, training, the eval harness and the training
-loop, the perceptual losses and the Faster-RCNN eval detector, and
-multi-process training and serving.
+loop, the perceptual losses and the Faster-RCNN eval detector,
+multi-process training and serving, and tensor parallelism.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -69,9 +69,10 @@ result line):
    torch.use_deterministic_algorithms, and whether the bilinear flow
    upsample's backward repeats (printed, not gates); and a gate that the
    loss on a fixed 256x256 batch falls over 20 steps;
-9. the codec eval harness at 1088x1920 (an 8-frame moving sequence written
+9. the codec eval harness at 1088x1920 (a 5-frame moving sequence written
    with the port's PNG codec, the seeded damped IntraNoAR and DMC saved as
-   .pth, gop 4, 4 rate points): `vcm_ts_tpu_torch.test_video.main` with
+   .pth, gop 4, so I P P P I: the I-frame restarts mid-sequence, 4 rate
+   points): `vcm_ts_tpu_torch.test_video.main` with
    real streams one rate point after another (launches counted), the same
    with --batch_rates (every .bin and every frame's log equal to the
    sequential run's), entropy-estimated; the decoding sweep's DCVC branch
@@ -126,9 +127,25 @@ result line):
    the ranks (every .bin equal to phase 9's one-process run); (c) an I +
    P batch at N = 2 through fleet codecs over ["cuda:0", "cuda:0"]
    against the unsharded batch. The ranks' launches join the kernels
-   line.
+   line;
+13. tensor parallelism (parallel/tensor.py's column-parallel split): (a)
+   kernels B and C at the slices of every main-path site that a model
+   axis of 2 and of 4 gives each rank (B's narrow path included), f32 and
+   bf16, against their plain versions, with device times and bounds; (b)
+   two gloo ranks sharing the card split the seeded IntraNoAR and DMC
+   (published widths) over a 1 x 2 data x model mesh: each rank's
+   parameter and Adam-moment bytes against the whole model's, the
+   forwards at 256x256 and phase 8's cascade step, each held to the
+   unsharded run on the card (the forwards' bpp rtol 1e-3 and image
+   within 1e-3 of its largest; the step with phase 8's card-against-card
+   tolerance), their walls and the collectives per step: host-staged
+   gloo, not a TP speed; after the step both ranks hold bit-equal whole
+   parameters and Adam moments (gated), and how far their own gradients
+   of the unsplit parameters were apart before model rank 0's broadcast
+   is printed. The ranks' launches join the kernels line.
 
-The last three lines of standard output are the `kernels` JSON object, the
+Each phase's seconds are printed as it ends ([phase N ...] lines) and
+kept in chip_smoke.json ("phase_s"). The last three lines of standard output are the `kernels` JSON object, the
 nvidia-smi line, and then {"ok": true, "device": {...}}. A longer record
 (chip_smoke.json) and the GOPs' .bin files go to --out (default
 smoke_out/ in the repo). Imports nothing of JAX.
@@ -1840,7 +1857,7 @@ def run_train(smi):
 
 
 # ------------------------------------------------------------------ phase 9
-EVAL_FRAMES, EVAL_GOP, EVAL_RATES = 8, 4, 4
+EVAL_FRAMES, EVAL_GOP, EVAL_RATES = 5, 4, 4
 
 
 def _u8(frame):
@@ -2999,19 +3016,22 @@ def run_parallel(out_dir, smi, evaluation):
         m = DMC(device="cpu")
         CheckPointer().load(m, path=j(root, "run",
                                       f"model_epoch_{e:03d}.pt"))
-    # frames/s of the global batch by each rank's clock: rank 0's second
-    # epoch starts after its eval and checkpoint, rank 1's while rank 0 is
-    # still in them, so the two bracket the rate
+    # frames/s of the global batch in each rank's record: the ranks start
+    # an epoch's clock together and record the slowest rank's seconds, so
+    # the two must agree
     out["trainer"] = {
         "s": [x["s"] for x in tr], "epochs": epochs,
         "frames_per_s": [[e["frames"] / e["train_s"]
                           for e in x["record"]["epochs"]] for x in tr],
         "launches": _add_launches(*(x["launches"] for x in tr))}
     _need(out["trainer"]["launches"], TRAIN_KERNELS, "trainer_multi")
+    if out["trainer"]["frames_per_s"][0] != out["trainer"]["frames_per_s"][1]:
+        raise AssertionError("trainer_multi: the ranks' epoch records give "
+                             f"other frames/s: {out['trainer']}")
     say(f"[parallel] trainer_multi, 2 gloo ranks on the card, phase 10's "
-        f"tree, all/cascade x2: frames/s of the global batch per epoch by "
-        f"rank 0's and rank 1's clocks {_g3(out['trainer']['frames_per_s'][0])}"
-        f" / {_g3(out['trainer']['frames_per_s'][1])}; rank 0's "
+        f"tree, all/cascade x2: frames/s of the global batch per epoch "
+        f"(both ranks' records) {_g3(out['trainer']['frames_per_s'][0])}; "
+        f"rank 0's "
         f"{len(epochs)} checkpoints load strict; launches "
         f"{out['trainer']['launches']} ({smi})")
 
@@ -3045,6 +3065,335 @@ def run_parallel(out_dir, smi, evaluation):
         out["fleet"]["launches"])
     shutil.rmtree(root)
     shutil.rmtree(ev)  # phase 9's tree
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# ----------------------------------------------------------------- phase 13
+# Kernel C's main-path calls at 1088x1920, the 3x3 SubpelConv sites of the
+# DMC (models/video_net.py: the context fusion's conv3_up and conv2_up,
+# the contextual decoder's up1-up4): (features C, input H, W).
+RELAYOUT_SITES = (
+    (64, H // 16, W // 16),  # decoder up1
+    (64, H // 8, W // 8),    # decoder up2
+    (64, H // 4, W // 4),    # decoder up3, context fusion conv3_up
+    (64, H // 2, W // 2),    # context fusion conv2_up
+    (32, H // 2, W // 2),    # decoder up4
+)
+TP_WIDTHS = (2, 4)
+TP_RANKS = 2  # gloo ranks sharing the card
+
+
+def _tp_slices(c):
+    """(n, C / n) of each model axis that splits C features
+    (parallel/tensor.tp_split)."""
+    return [(n, c // n) for n in TP_WIDTHS if c % n == 0 and c >= n]
+
+
+def check_tp_slices(g):
+    """Kernels B and C at the slices that tensor parallelism gives each
+    rank (n = 2 and 4) of every main-path site, f32 and bf16, against
+    their plain versions (B within phase 2's tolerance; C bit-equal),
+    with device times, the library yardsticks of phase 2 on the slice
+    (cuDNN's 1x1 conv without the shuffle; F.pixel_shuffle) and bounds. A slice with r*r*C <= 16 takes kernel
+    B's narrow path (csrc/subpel_conv1x1.cu)."""
+    from vcm_ts_tpu_torch.ops import subpel as ts
+
+    rows = []
+    seen = set()
+    for cin, c, h, w, _ in CONV1X1_SHAPES:
+        for n, cs in _tp_slices(c):
+            for dtype in (torch.float32, torch.bfloat16):
+                if (cin, cs, h, w, dtype) in seen:
+                    continue
+                seen.add((cin, cs, h, w, dtype))
+                x = torch.randn((1, cin, h, w), device="cuda",
+                                generator=g).to(dtype=dtype, memory_format=CL)
+                wk = (torch.randn((4, cin, cs), device="cuda", generator=g)
+                      / cin ** 0.5).to(dtype)
+                bk = (torch.randn((4, cs), device="cuda", generator=g)
+                      * 0.1).to(dtype)
+                got = ts.subpel_conv1x1_cuda(x, wk, bk, 2)
+                want = ts.subpel_conv1x1_plain(x, wk, bk, 2)
+                err = float((got.float() - want.float()).abs().max())
+                scale = max(1.0, float(want.float().abs().max()))
+                tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6 * scale
+                label = (f"{cin}->{c}/{n}={cs} at {h}x{w} {str(dtype)[6:]}"
+                         + (" narrow" if 4 * cs <= 16 else ""))
+                if not err <= tol:
+                    raise AssertionError(f"subpel_conv1x1 TP slice {label}: "
+                                         f"max_abs_err {err} > {tol}")
+                w4 = wk.permute(0, 2, 1).reshape(4 * cs, cin, 1, 1).contiguous(
+                    memory_format=CL)
+                b4 = bk.reshape(4 * cs)
+                t = times(lambda: ts.subpel_conv1x1_cuda(x, wk, bk, 2),
+                          lambda: ts.subpel_conv1x1_plain(x, wk, bk, 2),
+                          lambda: F.conv2d(x, w4, b4))
+                b, by = bound_ms(nbytes(x, wk, bk, got),
+                                 2 * h * w * cin * 4 * cs, dtype)
+                rows.append(dict(name="subpel_conv1x1", shape=label,
+                                 dtype=str(dtype)[6:], max_abs_err=err,
+                                 tol=tol, **t, library="F.conv2d 1x1 "
+                                 "(channels_last, bias, no shuffle; cuDNN)",
+                                 bound_ms=b, bound_by=by))
+    for c, h, w in RELAYOUT_SITES:
+        for n, cs in _tp_slices(c):
+            for dtype in (torch.float32, torch.bfloat16):
+                if (cs, h, w, dtype) in seen:
+                    continue
+                seen.add((cs, h, w, dtype))
+                x = torch.randn((1, 4 * cs, h, w), device="cuda",
+                                generator=g).to(dtype=dtype, memory_format=CL)
+                got = ts.relayout_cuda(x, 2)
+                label = f"C={c}/{n}={cs} {h}x{w} {str(dtype)[6:]}"
+                if not torch.equal(got, ts.relayout_plain(x, 2)):
+                    raise AssertionError(f"relayout TP slice {label}: not "
+                                         "bit-identical to the plain version")
+                xc = x.reshape(1, 4, cs, h, w).transpose(1, 2).reshape(
+                    1, 4 * cs, h, w).contiguous(memory_format=CL)
+                t = times(lambda: ts.relayout_cuda(x, 2),
+                          lambda: ts.relayout_plain(x, 2),
+                          lambda: F.pixel_shuffle(xc, 2))
+                b, by = bound_ms(2 * nbytes(x), 0, dtype)
+                rows.append(dict(name="pixel_shuffle_relayout", shape=label,
+                                 dtype=str(dtype)[6:], max_abs_err=0.0,
+                                 tol=0.0, **t,
+                                 library="F.pixel_shuffle (c-major input)",
+                                 bound_ms=b, bound_by=by))
+    return rows
+
+
+def _tp_inputs():
+    """Phase 8's first sequence at 256x256 (frame 1 coded against frame
+    0, the I-frame model's input), on the CPU."""
+    seq = _par_batch([0])
+    return {"x": seq[1, :1], "ref": seq[0, :1], "seq": seq}
+
+
+def tp_forwards(models, inp, mesh=None):
+    """The DMC's forward (is_first_p, q-scales PQ) and IntraNoAR's (q-scale
+    IQ) at 256x256 without gradients: outputs on the CPU, wall ms of each
+    (synchronized) and, split over `mesh`, through parallel/tensor's
+    tp_forward."""
+    from vcm_ts_tpu_torch.models.dmc import make_dpb
+    from vcm_ts_tpu_torch.parallel import tensor as tp
+
+    intra, dmc = models
+    dev = next(dmc.parameters()).device
+    x, ref = inp["x"].to(dev), inp["ref"].to(dev)
+    if mesh is not None:
+        fwd = tp.tp_forward(dmc, mesh, is_first_p=True)
+    else:
+        def fwd(*args):
+            with torch.no_grad():
+                return dmc(*args, True, training=False)
+    out = {}
+    for name, call in (
+            ("dmc", lambda: fwd(x, make_dpb(ref), PQ, PQ)),
+            ("intra", lambda: intra(ref, torch.full((1, 1, 1, 1), IQ,
+                                                    device=dev)))):
+        with torch.no_grad():
+            call()  # cuDNN plans
+            torch.cuda.synchronize(dev)
+            tp.reset_collectives()
+            t = time.perf_counter()
+            res = call()
+            torch.cuda.synchronize(dev)
+        key = "ref_frame" if name == "dmc" else "x_hat"
+        img = res["dpb"]["ref_frame"] if name == "dmc" else res["x_hat"]
+        out[name] = {key: img.cpu(), "bpp": res["bpp"].cpu(),
+                     "wall_ms": 1e3 * (time.perf_counter() - t),
+                     "collectives": dict(tp.COLLECTIVES)}
+    return out
+
+
+def tp_rank(spec):
+    """In each of TP_RANKS gloo ranks sharing the card: the seeded IntraNoAR
+    and DMC (published widths) split over a 1 x TP_RANKS data x model mesh
+    (parameter and Adam-moment bytes this rank holds, against the whole
+    model's), tp_forwards, then phase 8's cascade step (4x256x256,
+    p_frames 2, remat, f32) on every row (the model group's rows) from
+    the seeded state, twice (the first warms up; the second is timed:
+    wall ms, the kernel launches and collectives of that step alone,
+    FrameAux, the gathered first moments and parameters)."""
+    from vcm_ts_tpu_torch.models.dmc import make_dpb
+    from vcm_ts_tpu_torch.ops import cuda_build
+    from vcm_ts_tpu_torch.parallel import mesh as pm
+    from vcm_ts_tpu_torch.parallel import tensor as tp
+    from vcm_ts_tpu_torch.train import train_step as tts
+    from vcm_ts_tpu_torch.train.optimizer import make_stage_optimizer
+    from vcm_ts_tpu_torch.utils.device import set_codec_numerics
+    from vcm_ts_tpu_torch.utils.weights import make_dmc, make_intra
+
+    set_codec_numerics()
+    dev = pm.local_device("cuda")
+    mesh = pm.make_dp_tp_mesh(1, pm.get_world_size(), device_type="cuda")
+    out = {"bytes": {}}
+
+    def split(model):
+        whole = sum(p.numel() * p.element_size() for p in model.parameters())
+        n = tp.shard_params_tp(model, mesh)
+        mine = sum(p.numel() * p.element_size() for p in model.parameters())
+        return n, whole, mine
+
+    intra, dmc = make_intra(dev), make_dmc(dev)
+    for name, model in (("intra", intra), ("dmc", dmc)):
+        n, whole, mine = split(model)
+        out["bytes"][name] = {"n_split": n, "whole": whole, "rank": mine}
+    cuda_build.reset_launches()
+    out["forward"] = tp_forwards((intra, dmc), spec, mesh)
+    out["forward_launches"] = dict(cuda_build.LAUNCHES)
+    del intra, dmc
+    torch.cuda.empty_cache()
+
+    seq = spec["seq"].to(dev)
+    noise = [tuple(t.to(dev) for t in n) for n in spec["noise"]]
+    whole_grads = {}
+    broadcast0 = pm.broadcast_whole_grads
+
+    def broadcast_seen(grads, split, mesh):
+        # the whole parameters' gradients as this rank computed them
+        whole_grads.update({n: g.detach().cpu() for n, g in grads.items()
+                            if g is not None and n not in split})
+        return broadcast0(grads, split, mesh)
+
+    pm.broadcast_whole_grads = broadcast_seen
+    for timed in (False, True):
+        model = make_dmc(dev)
+        n_split, whole, mine = split(model)
+        opt = make_stage_optimizer(model, "all", 1e-4)
+        moments = sum(2 * m.numel() * m.element_size()
+                      for m in opt.mu.values())
+        step = tts.make_cascade_step(model, opt, _train_stage(),
+                                     lambdas=LAMBDAS, dist_lambda=1.0,
+                                     pl_lambda=0.0, mesh=mesh)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        cuda_build.reset_launches()
+        tp.reset_collectives()
+        t = time.perf_counter()
+        aux, _ = step(seq[1:], seq[1:], make_dpb(seq[0]), noise)
+        torch.cuda.synchronize(dev)
+        wall = 1e3 * (time.perf_counter() - t)
+    out["step"] = {
+        "wall_ms": wall, "peak_bytes": torch.cuda.max_memory_allocated(dev),
+        "launches": dict(cuda_build.LAUNCHES),
+        "collectives": dict(tp.COLLECTIVES),
+        "param_bytes": {"whole": whole, "rank": mine},
+        "moment_bytes": {"rank": moments},
+        "aux": {f: getattr(aux, f).cpu() for f in tts.FrameAux._fields},
+        "opt": opt.state_dict(), "whole_grads": whole_grads,
+        "params": pm.host_copy(model)}
+    out["step"]["mu"] = out["step"]["opt"]["mu"]
+    return out
+
+
+def run_tp(smi, g):
+    """Phase 13: tensor parallelism on the card, with gates."""
+    from vcm_ts_tpu_torch.parallel.spawn import run_ranks
+    from vcm_ts_tpu_torch.utils.weights import make_dmc, make_intra
+
+    t_phase = time.perf_counter()
+    out = {"rows": check_tp_slices(g)}
+    say_rows(out["rows"])
+    inp = _tp_inputs()
+    inp["noise"] = _par_noise(make_dmc("cuda"), inp["seq"])
+    want_fwd = tp_forwards((make_intra("cuda"), make_dmc("cuda")), inp)
+    want = par_steps({"seq": inp["seq"], "noise": inp["noise"],
+                      "modes": ["plain"]})["modes"]["plain"]
+    whole_moments = 2 * sum(v.numel() * v.element_size()
+                            for v in want["mu"].values())
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = [r["result"] for r in run_ranks(
+        tp_rank, TP_RANKS, inp, backend="gloo", device="cuda", timeout=600)]
+    out["ranks_s"] = time.perf_counter() - t
+    # the forwards: one whole output on both ranks, the unsharded one's
+    # within phase 8's card-against-card rtol 1e-3 (bpp) and 1e-3 of the
+    # image's largest (the 3-channel output)
+    out["forward_err"] = {}
+    for name, key in (("dmc", "ref_frame"), ("intra", "x_hat")):
+        a = want_fwd[name]
+        for i, r in enumerate(ranks):
+            b = r["forward"][name]
+            e_img = float((b[key] - a[key]).abs().max())
+            e_bpp = float(((b["bpp"] - a["bpp"]).abs()
+                           / a["bpp"].abs().clamp_min(1e-6)).max())
+            if not (e_img <= 1e-3 * float(a[key].abs().max())
+                    and e_bpp <= 1e-3):
+                raise AssertionError(f"TP forward {name}, rank {i}: {key} "
+                                     f"off by {e_img}, bpp by {e_bpp}")
+            out["forward_err"][f"{name} rank {i}"] = (e_img, e_bpp)
+        if not torch.equal(ranks[0]["forward"][name][key],
+                           ranks[1]["forward"][name][key]):
+            raise AssertionError(f"TP forward {name}: the ranks' whole "
+                                 "outputs differ")
+    out["step_err"] = [_par_gate(r["step"], want, f"TP={TP_RANKS} step, "
+                                 f"rank {i}, vs the unsharded step")
+                       for i, r in enumerate(ranks)]
+    # one model group: after the step its ranks hold bit-equal whole
+    # parameters and moments (model rank 0's whole-parameter gradients are
+    # broadcast); how far the ranks' own gradients of those parameters
+    # were apart before the broadcast is reported
+    a, b = (r["step"] for r in ranks)
+    for what in ("params", "mu", "nu"):
+        x, y = ((s["params"] if what == "params" else s["opt"][what])
+                for s in (a, b))
+        differ = [k for k in x if not torch.equal(x[k], y[k])]
+        if set(x) != set(y) or differ:
+            raise AssertionError(f"TP={TP_RANKS} step: the ranks' whole "
+                                 f"{what} differ ({differ[:4]})")
+    out["whole_grad_gap"] = max(
+        float((a["whole_grads"][k] - b["whole_grads"][k]).abs().max())
+        for k in a["whole_grads"])
+    out["whole_grads_equal"] = all(
+        torch.equal(a["whole_grads"][k], b["whole_grads"][k])
+        for k in a["whole_grads"])
+    launches = _add_launches(*(r["forward_launches"] for r in ranks),
+                             *(r["step"]["launches"] for r in ranks))
+    _need(_add_launches(*(r["step"]["launches"] for r in ranks)),
+          TRAIN_KERNELS, f"TP={TP_RANKS} cascade step")
+    out["launches"] = launches
+    out["bytes"] = ranks[0]["bytes"]
+    out["step"] = {k: [r["step"][k] for r in ranks]
+                   for k in ("wall_ms", "peak_bytes", "collectives",
+                             "param_bytes", "moment_bytes", "launches")}
+    out["forward"] = {
+        name: {"wall_ms": [r["forward"][name]["wall_ms"] for r in ranks],
+               "unsharded_wall_ms": want_fwd[name]["wall_ms"],
+               "collectives": ranks[0]["forward"][name]["collectives"]}
+        for name in ("dmc", "intra")}
+    out["unsharded_step_ms"] = want["wall_ms"]
+    out["whole_moment_bytes"] = whole_moments
+    note = ("host-staged gloo on 2 ranks sharing one card: checks the "
+            "arithmetic, not a TP speed")
+    by = out["bytes"]
+    say(f"[tp] per-rank parameter bytes of the {TP_RANKS}-way split: "
+        + "; ".join(f"{k} {v['rank']} of {v['whole']} whole "
+                    f"({v['rank'] / v['whole']:.3f}; {v['n_split']} "
+                    "parameters split)" for k, v in by.items())
+        + f"; DMC Adam moments {out['step']['moment_bytes'][0]['rank']} of "
+        f"{whole_moments} whole ({smi})")
+    say(f"[tp] TP={TP_RANKS} forwards at {TH}x{TW} against the unsharded "
+        f"forwards (errors {out['forward_err']}): "
+        + "; ".join(f"{k} wall {_g3(v['wall_ms'])} ms (unsharded "
+                    f"{v['unsharded_wall_ms']:.1f} ms), collectives "
+                    f"{v['collectives']}" for k, v in out["forward"].items())
+        + f" ({note}; {smi})")
+    say(f"[tp] TP={TP_RANKS} cascade step (phase 8's, {TN}x{TH}x{TW}, p_frames "
+        f"2, f32) against the unsharded step: errors {out['step_err']}; "
+        f"wall {_g3(out['step']['wall_ms'])} ms against "
+        f"{want['wall_ms']:.1f} ms unsharded; collectives per step "
+        f"{out['step']['collectives'][0]}; kernel launches per rank "
+        f"{out['step']['launches'][0]}; peak "
+        f"{_g3([b / 2**30 for b in out['step']['peak_bytes']])} GiB ({note};"
+        f" {smi})")
+    say(f"[tp] TP={TP_RANKS} cascade step: both ranks' whole parameters and "
+        f"Adam moments bit-equal after the step; the gradients of the "
+        f"{len(a['whole_grads'])} whole (unsplit) parameters as each rank "
+        f"computed them, before model rank 0's broadcast: bit-equal "
+        f"{out['whole_grads_equal']}, largest gap {out['whole_grad_gap']:.3g}"
+        f" ({smi})")
     out["phase_s"] = time.perf_counter() - t_phase
     return out
 
@@ -3091,6 +3440,17 @@ def main():
                     help="directory for chip_smoke.json and the .bin files")
     args = ap.parse_args()
     t_start = time.perf_counter()
+    phase_s = {}
+    t = t_start
+
+    def phase_done(name):
+        """Record and print the seconds since the last phase ended."""
+        nonlocal t
+        now = time.perf_counter()
+        phase_s[name] = now - t
+        say(f"[phase {name}] {phase_s[name]:.1f} s; total so far "
+            f"{now - t_start:.1f} s")
+        t = now
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs one CUDA device", file=sys.stderr)
@@ -3105,25 +3465,26 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     say(f"[setup] {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
-    t = time.perf_counter()
+    t_build = time.perf_counter()
     cuda_build.build_all()
-    say(f"[setup] kernels built in {time.perf_counter() - t:.1f} s")
+    say(f"[setup] kernels built in {time.perf_counter() - t_build:.1f} s")
     for name, log in cuda_build.build_log.items():
         for line in log.splitlines():
             if "registers" in line:
                 say(f"[ptxas {name}] {line.strip()}")
     set_codec_numerics()
+    phase_done("1 setup")
 
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = (check_warp(g) + check_subpel_conv1x1(g) + check_relayout(g)
             + check_warp_twopass(g))
     say_rows(rows)
+    phase_done("2 kernels")
 
-    t = time.perf_counter()
     intra, dmc = make_intra("cuda"), make_dmc("cuda")
     ref = small_reference(intra, dmc)
-    say(f"[reference] 64x64 CPU vs GPU: {ref} "
-        f"({time.perf_counter() - t:.1f} s)")
+    say(f"[reference] 64x64 CPU vs GPU: {ref}")
+    phase_done("3 reference")
 
     benches = []
     common = ["--size", f"{H}x{W}", "--frames", "3", "--warmup", "2",
@@ -3134,6 +3495,7 @@ def main():
         benches.append(b)
         say(f"[bench] {label}: {b['value']} fps (estimation, {W}x{H}), "
             f"launches {b['launches']} ({b['held_s']:.1f} s)")
+    phase_done("4 bench")
 
     out_dir = args.out
     os.makedirs(out_dir, exist_ok=True)
@@ -3145,13 +3507,14 @@ def main():
                                    "pixel_shuffle_relayout"}),
             ("bf16_fast_warp", (intra16, dmc16),
              {"warp_twopass", "subpel_conv1x1", "pixel_shuffle_relayout"})):
-        t = time.perf_counter()
+        t_gop = time.perf_counter()
         gop = run_gop(*models, out_dir, tag, expect)
         gops.append(gop)
         say(f"[gop {tag}] I+{gop['frames'] - 1}P {W}x{H}: encode "
             f"{gop['encode_fps']:.3f} fps, decode {gop['decode_fps']:.3f} fps, "
             f"bin bytes {gop['bin_bytes']}, PSNR {gop['psnr_db']}, decoded == "
-            f"encoder recon on every frame ({time.perf_counter() - t:.1f} s)")
+            f"encoder recon on every frame "
+            f"({time.perf_counter() - t_gop:.1f} s)")
         say(f"[gop {tag}] launches {gop['launches']}")
         for label, p in gop["profile"].items():
             top = ", ".join(f"{k['name'][:40]} {k['ms']:.1f} ms "
@@ -3163,13 +3526,13 @@ def main():
                              for k, v in p["port_kernels"].items())
             say(f"[profile {tag}] P-frame {label}: port kernels: {ours}")
 
-    t = time.perf_counter()
+    phase_done("5 gops")
     batched = check_kernels_batched(g)
     say(f"[serving] kernels at N=2, each row == its N=1 launch bit for bit: "
-        f"{', '.join(batched)} ({time.perf_counter() - t:.1f} s; {smi})")
+        f"{', '.join(batched)} ({smi})")
     serving = run_serving(intra, dmc, intra16, dmc16, smi)
+    phase_done("6 serving")
 
-    t = time.perf_counter()
     vcm = run_vcm(out_dir, smi)
     say_vcm(vcm, time.perf_counter() - t, smi)
     vcm["intra_conv_launches"] = intra_conv_launches()
@@ -3178,40 +3541,38 @@ def main():
             f"{r['launches']} launches, {r['device_ms']:.2f} ms device "
             f"({r['top_launches']} x {r['top_kernel']}; {smi})")
 
-    t = time.perf_counter()
+    phase_done("7 vcm")
     train_rows = check_warp_bwd(g) + check_space_to_depth(g)
     say_rows(train_rows)
-    say(f"[train] kernels A' and C' checked ({time.perf_counter() - t:.1f} "
-        f"s; {smi})")
+    say(f"[train] kernels A' and C' checked ({smi})")
     train = run_train(smi)
     rows += train_rows
+    phase_done("8 train")
 
-    t = time.perf_counter()
     evaluation = run_eval(out_dir, smi)
     say_eval(evaluation, smi)
-    t_eval = time.perf_counter() - t
-    t = time.perf_counter()
+    phase_done("9 eval")
     loop = run_trainloop(out_dir, smi)
     say_trainloop(loop, train["bench"][0]["value"], smi)
-    say(f"[phases 9-10] eval {t_eval:.1f} s, trainloop "
-        f"{time.perf_counter() - t:.1f} s; total so far "
-        f"{time.perf_counter() - t_start:.1f} s ({smi})")
+    phase_done("10 trainloop")
     perceptual = run_perceptual(out_dir, smi, train)
-    say(f"[phase 11] perceptual {perceptual['phase_s']:.1f} s; total so far "
-        f"{time.perf_counter() - t_start:.1f} s ({smi})")
+    phase_done("11 perceptual")
     parallel = run_parallel(out_dir, smi, evaluation)
-    say(f"[phase 12] parallel {parallel['phase_s']:.1f} s; total so far "
-        f"{time.perf_counter() - t_start:.1f} s ({smi})")
+    phase_done("12 parallel")
+    tensor_parallel = run_tp(smi, g)
+    rows += tensor_parallel["rows"]
+    phase_done("13 tensor parallel")
 
     # one entry per kernel: its first (main-path) shape, and its launches
     # summed over the main paths: the two GOPs, the two batched serving
     # runs, the warm VCM pipeline run, one cascade train step, the eval
     # harness's sequential run, the trainer's run, one cascade step with
-    # the perceptual loss, the trainer's perceptual run, and phase 12's
-    # ranks (each read with the counts reset just before it)
+    # the perceptual loss, the trainer's perceptual run, and phase 12's and
+    # phase 13's ranks (each read with the counts reset just before it)
     paths = gops + serving["batch"] + [vcm, train, evaluation, loop,
                                        perceptual["step"],
-                                       perceptual["loop"], parallel]
+                                       perceptual["loop"], parallel,
+                                       tensor_parallel]
     kernels = []
     for name in ("warp", "warp_bwd", "subpel_conv1x1",
                  "pixel_shuffle_relayout", "space_to_depth", "warp_twopass"):
@@ -3230,10 +3591,13 @@ def main():
                    "kernels_batched": batched, "vcm": vcm,
                    "train": train, "eval": evaluation, "trainloop": loop,
                    "perceptual": perceptual, "parallel": parallel,
-                   "kernels": kernels}, f,
+                   "tensor_parallel": {k: v for k, v in
+                                       tensor_parallel.items()
+                                       if k != "rows"},
+                   "phase_s": phase_s, "kernels": kernels}, f,
                   indent=1, default=float)
     say(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s "
-        f"({smi})")
+        f"({smi}); seconds by phase {json.dumps(phase_s)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

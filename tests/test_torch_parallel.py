@@ -33,7 +33,7 @@ frames made with numpy, 8 global rows (2 ranks of 4).
   --fsdp.
 - The harness: fleet_mesh_size against the JAX harness's, test_video's
   2-rank split against one process, fleet batches against unsharded
-  ones; the modes that wait for ROADMAP.md items 7 and 8 raise.
+  ones; the spatial mode, which waits for ROADMAP.md item 8, raises.
 """
 
 from __future__ import annotations
@@ -490,7 +490,10 @@ def test_trainer_multi_resume_repeats_uninterrupted_run(multi):
 
 
 def test_trainer_multi_refuses_tp_and_fsdp_with_tp():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    """--tp needs a process group (no torchrun here); --fsdp and --tp
+    exclude each other (tests/test_torch_tensor_parallel.py trains with
+    --tp on ranks)."""
+    with pytest.raises(SystemExit, match="torchrun"):
         trainer_multi.main(["--device", "cpu", "--tp", "2"])
     with pytest.raises(SystemExit, match="mutually exclusive"):
         trainer_multi.main(["--device", "cpu", "--tp", "2", "--fsdp"])

@@ -11,7 +11,9 @@ A DMC at 16/16/24 with 4 anchors on the seeded damped init, 64x64 frames.
 One NCCL rank (NCCL takes one rank per device, and the card machine has
 one) runs the DP and FSDP steps against the plain step on the same rows;
 two gloo ranks share the card (gloo stages CUDA tensors through the host)
-against one process on the 8 global rows. The card's steps are not
+against one process on the 8 global rows; a fleet of two codec replicas
+sharing the card against the unsharded batch, twice, four rows deep. The
+card's steps are not
 deterministic (A''s f32 atomics), so the tolerance is chip_smoke.py's
 card-against-card one (phase 8): FrameAux rtol 1e-3, gradients (the first
 moments) within 2e-2 of each leaf's largest magnitude, parameters within
@@ -102,3 +104,45 @@ def test_two_gloo_ranks_sharing_the_card_match_one_process(spec):
     res = run_ranks(steps_case, 2, [spec], backend="gloo", device="cuda")
     for r in res:
         _close(r["result"][0], want)
+
+
+@pytest.mark.cuda
+def test_fleet_on_one_card_twice_matches_unsharded(spec):
+    """A fleet over ["cuda:0", "cuda:0"] (two replicas sharing the card,
+    each on its own stream), an I + P batch four rows deep (128x128, the
+    seeded damped codecs at published widths, real streams), run twice:
+    each time the same streams, recon and DPB as the unsharded batch."""
+    import copy
+
+    from vcm_ts_tpu_torch.codec.engine import IntraCodec, VideoCodec
+    from vcm_ts_tpu_torch.models.dmc import make_dpb
+    from vcm_ts_tpu_torch.utils.weights import make_dmc, make_intra
+
+    plain = (IntraCodec(make_intra("cuda")), VideoCodec(make_dmc("cuda")))
+    fleet = tuple(type(c)(copy.deepcopy(c.model)) for c in plain)
+    for c in plain + fleet:
+        c.update()
+    for c in fleet:
+        assert c.set_fleet_sharding(["cuda:0", "cuda:0"]) == 2
+    rng = np.random.default_rng(16)
+    base = rng.random((2, 4, 16, 16, 3)).astype(np.float32)
+    frames = np.kron(base, np.ones((1, 1, 8, 8, 1), np.float32))
+    q = np.asarray([0.5, 0.3, 0.7, 0.45], np.float32).reshape(-1, 1, 1, 1)
+
+    def run(ic, vc):
+        streams = ic.compress_batch(frames[0], q)
+        recon = ic.decompress_batch(streams, 128, 128, q)
+        dpb = make_dpb(torch.clamp(recon, 0, 1))
+        enc = vc.compress_batch(frames[1], dpb, q, q, True)
+        dec = vc.decompress_batch(dpb, enc["bit_streams"], 128, 128, q, q,
+                                  True)
+        torch.cuda.synchronize()
+        return streams + enc["bit_streams"], recon, dec["dpb"]
+
+    want = run(*plain)
+    for _ in range(2):
+        streams, recon, dpb = run(*fleet)
+        assert streams == want[0]
+        assert torch.equal(recon, want[1])
+        for k in want[2]:
+            assert torch.equal(dpb[k], want[2][k]), k

@@ -1,5 +1,6 @@
-"""Process groups, the "data" mesh and the collectives of data-parallel
-training (the port's counterpart of vcm_ts_tpu/parallel/mesh.py).
+"""Process groups, the "data" and "data" x "model" meshes and the
+collectives of data-parallel training (the port's counterpart of
+vcm_ts_tpu/parallel/mesh.py).
 
 One process per device, started by torchrun (`python -m
 torch.distributed.run`), which sets RANK, WORLD_SIZE and LOCAL_RANK; a
@@ -11,6 +12,15 @@ train step averages the gradients over the ranks once per step
 (`reduce_gradients`), before clipping and the update, so every rank applies
 the same update to the same weights: a data-parallel step equals a
 one-process step on the global rows, up to the order of the sums.
+
+Under tensor parallelism (parallel/tensor.py) the ranks form a data x
+model mesh (`make_dp_tp_mesh`), the model axis the minor one: rank r has
+data index r // n_model and model index r % n_model, and each axis has
+its own process group. The ranks of one data index hold one copy of the
+model, split over the model axis, and take the same rows. The helpers of
+data parallelism here (`global_batch`, `reduce_gradients`,
+`mean_over_ranks`, `replicate`) take either mesh and act over its "data"
+axis alone (`data_mesh`).
 
 Backends follow the device: NCCL for CUDA, gloo for the CPU. NCCL takes one
 rank per device. Ranks may share a CUDA device only under gloo, and only
@@ -29,10 +39,8 @@ import torch
 import torch.distributed as dist
 
 from ..utils.device import resolve_device
+from .tensor import COLLECTIVES, gather_whole, split_params
 
-TP_WAITS = ("tensor parallelism (--tp > 1: column-parallel convs, kernel B's "
-            "output channels split in groups of r^2) waits for ROADMAP.md "
-            "Queue 1 item 7")
 SPATIAL_WAITS = ("spatial sharding (parallel/spatial.py, "
                  "engine.set_spatial_sharding: halo exchanges) waits for "
                  "ROADMAP.md Queue 1 item 8")
@@ -124,16 +132,69 @@ def make_global_mesh(axis: str = "data", device_type: str = "cuda"):
     return make_mesh(None, axis, device_type)
 
 
+def make_dp_tp_mesh(n_data: int, n_model: int, device_type: str = "cuda"):
+    """A two-dimensional ("data", "model") DeviceMesh over n_data * n_model
+    ranks (the world), the model axis the minor one: rank r sits at (r //
+    n_model, r % n_model). Each axis gets its own process groups, of the
+    world's backend (NCCL on CUDA, gloo on the CPU). make_dp_tp_mesh(1, n)
+    is the JAX package's make_tp_mesh(n)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    world = get_world_size()
+    if n_data * n_model != world:
+        raise ValueError(f"a {n_data} x {n_model} mesh needs as many ranks; "
+                         f"the world has {world}")
+    return init_device_mesh(device_type, (n_data, n_model),
+                            mesh_dim_names=("data", "model"))
+
+
+def make_global_dp_tp_mesh(n_model: int, device_type: str = "cuda"):
+    """The data x model mesh over every rank (trainer_multi --tp): n_model
+    ranks a model group, the world's other factor the data axis. A world
+    size that n_model does not divide raises, and so does a host whose
+    ranks (torchrun's LOCAL_WORLD_SIZE) it does not divide: a model group
+    stays on one host, as the JAX package keeps the model axis inside one
+    process's devices."""
+    world = get_world_size()
+    local = _env_int("LOCAL_WORLD_SIZE", world)
+    if n_model < 1 or world % n_model or local % n_model:
+        raise ValueError(f"--tp {n_model} must divide the world size {world}"
+                         f" and the ranks of a host ({local})")
+    return make_dp_tp_mesh(world // n_model, n_model, device_type)
+
+
+def data_mesh(mesh):
+    """The "data" axis of `mesh`: a one-dimensional mesh itself, the
+    "data" sub-mesh of a data x model mesh; None stays None."""
+    if mesh is None or getattr(mesh, "ndim", 1) == 1:
+        return mesh
+    return mesh["data"]
+
+
+def model_size(mesh) -> int:
+    """The size of the "model" axis of a data x model mesh (1 for None or
+    a one-dimensional mesh)."""
+    if mesh is None or getattr(mesh, "ndim", 1) == 1:
+        return 1
+    return mesh["model"].size()
+
+
 def _mesh_rank_world(mesh) -> tuple:
     if mesh is None:
         return get_rank(), get_world_size()
+    mesh = data_mesh(mesh)
     return mesh.get_local_rank(), mesh.size()
+
+
+def _group(mesh):
+    return None if mesh is None else data_mesh(mesh).get_group()
 
 
 def global_batch(batch, mesh=None, batch_dim: int = 0):
     """This rank's rows of a global batch (a tensor, an array, or a dict,
-    tuple or list of them): the global rows split into equal blocks in rank
-    order along `batch_dim` (1 for cascade chains, (T, N, ...))."""
+    tuple or list of them): the global rows split into equal blocks in
+    the order of the data axis along `batch_dim` (1 for cascade chains,
+    (T, N, ...)); the ranks of one model group take the same rows."""
     rank, world = _mesh_rank_world(mesh)
 
     def rows(x):
@@ -175,9 +236,10 @@ def _coalesced(tensors: list, fn) -> list:
 
 
 def _mean(tensors: list, mesh) -> list:
-    """Each tensor averaged over the ranks, one all-reduce per bucket."""
+    """Each tensor averaged over the data axis, one all-reduce per
+    bucket."""
     _, world = _mesh_rank_world(mesh)
-    group = None if mesh is None else mesh.get_group()
+    group = _group(mesh)
 
     def mean(flat):
         dist.all_reduce(flat, group=group)
@@ -187,8 +249,8 @@ def _mean(tensors: list, mesh) -> list:
 
 
 def reduce_gradients(grads: dict, mesh=None) -> dict:
-    """The mean of a {name: gradient} dict over the ranks, one all-reduce
-    per (device, dtype) bucket rather than one per tensor. None stays None
+    """The mean of a {name: gradient} dict over the data axis, one
+    all-reduce per (device, dtype) bucket rather than one per tensor. None stays None
     (no gradient on any rank); a DTensor gradient (a parameter that
     fully_shard manages) is already reduced and passes through."""
     from torch.distributed.tensor import DTensor
@@ -202,8 +264,31 @@ def reduce_gradients(grads: dict, mesh=None) -> dict:
     return out
 
 
+def broadcast_whole_grads(grads: dict, split, mesh=None) -> dict:
+    """Under tensor parallelism, the gradients of the whole (unsplit)
+    parameters as model rank 0 holds them, on every rank of its model
+    group (one broadcast per bucket); `split` names the split parameters,
+    whose gradients stay this rank's slice's. Without a model axis, grads
+    itself."""
+    if model_size(mesh) == 1:
+        return grads
+    names = [n for n, g in grads.items() if g is not None and n not in split]
+    group = mesh["model"].get_group()
+    src = dist.get_global_rank(group, 0)
+
+    def bcast(flat):
+        dist.broadcast(flat, src, group=group)
+        COLLECTIVES["broadcast"] += 1
+        return flat
+
+    out = dict(grads)
+    out.update(zip(names, _coalesced([grads[n] for n in names], bcast)))
+    return out
+
+
 def mean_over_ranks(tensors: list, mesh=None) -> list:
-    """Each tensor averaged over the ranks (one all-reduce per bucket)."""
+    """Each tensor averaged over the data axis (one all-reduce per
+    bucket)."""
     if _mesh_rank_world(mesh)[1] == 1:
         return list(tensors)
     return _mean([t.detach() for t in tensors], mesh)
@@ -211,12 +296,14 @@ def mean_over_ranks(tensors: list, mesh=None) -> list:
 
 @torch.no_grad()
 def replicate(module: torch.nn.Module, mesh=None) -> torch.nn.Module:
-    """Rank 0's parameters and buffers broadcast to every rank, in place
-    (one broadcast per bucket); returns the module."""
+    """The parameters and buffers of the data axis's first rank broadcast
+    over the axis (without a mesh: global rank 0's to every rank), in
+    place, one broadcast per bucket; returns the module. Under tensor
+    parallelism each model index broadcasts its own slices."""
     _, world = _mesh_rank_world(mesh)
     if world == 1:
         return module
-    group = None if mesh is None else mesh.get_group()
+    group = _group(mesh)
     src = 0 if mesh is None else dist.get_global_rank(group, 0)
     tensors = list(module.parameters()) + list(module.buffers())
 
@@ -255,10 +342,22 @@ def full_tensor(t: torch.Tensor) -> torch.Tensor:
 
 def host_copy(module: torch.nn.Module) -> dict:
     """The module's whole state_dict on the host. Under FSDP each sharded
-    tensor is gathered: a collective that every rank must join, never
-    rank 0 alone."""
-    return {k: full_tensor(v).detach().cpu().clone()
-            for k, v in module.state_dict().items()}
+    tensor is gathered, under tensor parallelism each split one (its
+    slices in model-rank order): a collective that every rank must join,
+    never rank 0 alone."""
+    split = split_params(module)
+    return {k: gather_whole(full_tensor(v), split.get(k)).detach().cpu()
+            .clone() for k, v in module.state_dict().items()}
+
+
+def max_over_ranks(value: float, device="cpu") -> float:
+    """The largest of every rank's `value` (one all-reduce over the world
+    on a tensor on `device`; one process: value itself)."""
+    if get_world_size() == 1:
+        return value
+    t = torch.tensor([value], dtype=torch.float64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return float(t.item())
 
 
 def all_gather_metrics(obj):

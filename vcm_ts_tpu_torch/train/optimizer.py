@@ -24,6 +24,15 @@ operation then runs once on the shards and once on the whole tensors
 (torch's foreach ops take no mixed lists), the global norm is one value on
 every rank, and `state_dict` / `load_state_dict` gather and split whole
 moments (collectives every rank joins).
+
+Under tensor parallelism (parallel/tensor.shard_params_tp, before the
+optimizer is built) a split parameter is the rank's slice of the whole
+tensor, and its moments are slices too. The global norm sums the split
+gradients' squares over the model group and adds the whole parameters'
+once (their gradients are equal on the model ranks), so it is the norm
+over the whole tree. `state_dict` gathers every split moment whole, in
+model-rank order (a collective of the model group), and `load_state_dict`
+takes the rank's slice of a whole moment.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import torch.distributed as dist
 import torch.nn as nn
 
 from ..parallel.mesh import full_tensor
+from ..parallel.tensor import gather_whole, own_slice, split_params
 
 # Top-level DMC parameter groups (the reference's dcvc_hem.py:23-42)
 INTER_DIST_MODULES = frozenset({
@@ -92,6 +102,9 @@ class StageOptimizer:
         self.count = 0
         self.mu = {n: torch.zeros_like(p) for n, p in self.params.items()}
         self.nu = {n: torch.zeros_like(p) for n, p in self.params.items()}
+        # {name: ModelAxis} of the tensor-parallel slices among them
+        split = split_params(model)
+        self.split = {n: split[n] for n in self.params if n in split}
 
     @property
     def names(self):
@@ -106,13 +119,20 @@ class StageOptimizer:
     def _clip(self, grads: list) -> list:
         """optax.clip_by_global_norm: g / norm * max where norm >= max.
         Under FSDP the shards' squares are summed here and all-reduced,
-        so the norm is one plain value on every rank."""
+        under tensor parallelism the slices' over the model group, so the
+        norm is one plain value on every rank."""
         shards = [g for g in grads if _is_dtensor(g)]
+        split = [n in self.split for n in self.params]
         if shards:
             sq = sum(torch.sum(g.to_local() * g.to_local()) for g in shards)
             dist.all_reduce(sq, group=shards[0].device_mesh.get_group())
             sq = sq + sum(torch.sum(g * g) for g in grads
                           if not _is_dtensor(g))
+        elif any(split):
+            sq = sum(torch.sum(g * g) for g, s in zip(grads, split) if s)
+            dist.all_reduce(sq, group=next(iter(self.split.values())).group)
+            sq = sq + sum(torch.sum(g * g) for g, s in zip(grads, split)
+                          if not s)
         else:
             sq = sum(torch.sum(g * g) for g in grads)
         norm = torch.sqrt(sq)
@@ -124,8 +144,8 @@ class StageOptimizer:
         """The step count and both moments, on the CPU (a checkpoint's
         "opt_state")."""
         def host(d):
-            return {n: full_tensor(t).detach().cpu().clone()
-                    for n, t in d.items()}
+            return {n: gather_whole(full_tensor(t), self.split.get(n))
+                    .detach().cpu().clone() for n, t in d.items()}
 
         return {"count": self.count, "mu": host(self.mu), "nu": host(self.nu)}
 
@@ -140,7 +160,7 @@ class StageOptimizer:
         for n in self.mu:
             for mine, whole in ((self.mu[n], state["mu"][n]),
                                 (self.nu[n], state["nu"][n])):
-                mine.copy_(_like(mine, whole))
+                mine.copy_(_like(mine, own_slice(whole, self.split.get(n))))
         self.count = int(state["count"])
 
     @torch.no_grad()

@@ -18,18 +18,27 @@ With `mesh` (parallel/mesh.make_global_mesh: the "data" DeviceMesh over the
 ranks) training is data parallel: each rank's loader gives its own rows,
 rank 0's weights go to every rank at each stage entry, the steps average
 the gradients and FrameAux over the ranks, and the lr is scaled by
-sqrt(world size) (the reference's train_multi.py:158-160). With `fsdp` the
+sqrt(data ranks) (the reference's train_multi.py:158-160). With `fsdp` the
 model is sharded over the mesh first (parallel/tensor.shard_params_fsdp)
-and each stage's optimizer keeps its moments in the same shards. Rank 0
-alone logs, writes metrics, runs eval and OD-mAP, and writes checkpoints;
-under FSDP every rank first joins the gather of the whole weights and
-moments (a collective), and rank 0 evaluates a whole copy of the model.
-The best/worst sample tracker is off when more than one process runs.
+and each stage's optimizer keeps its moments in the same shards. A data x
+model mesh (parallel/mesh.make_global_dp_tp_mesh) whose "model" axis is
+larger than 1 splits the model over that axis first
+(parallel/tensor.shard_params_tp, the JAX loop's seam at
+vcm_ts_tpu/train/train_loop.py:121-136): the ranks of one model group
+take the same rows, and the steps average over the "data" axis alone;
+fsdp and tensor parallelism exclude each other. Rank 0 alone logs, writes
+metrics, runs eval and OD-mAP, and writes checkpoints; under FSDP or
+tensor parallelism every rank first joins the gather of the whole weights
+and moments (a collective), and rank 0 evaluates a whole copy of the
+model. The best/worst sample tracker is off when more than one process
+runs.
 
 `do_train` returns a record of the run: per epoch its stage, frames
 trained, the seconds spent in the steps, waiting on the loader, in eval and
 in the checkpoint, and per iteration the mean loss, bpp and psnr per rate
-anchor.
+anchor. With more than one process the ranks meet at a barrier before an
+epoch's clock starts, and every rank records the slowest rank's step
+seconds, so each rank's record gives the same frames/s.
 """
 
 from __future__ import annotations
@@ -44,7 +53,7 @@ import torch
 
 from ..eval.validation import eval_dataset
 from ..parallel import mesh as pm
-from ..parallel.tensor import shard_params_fsdp
+from ..parallel.tensor import shard_params_fsdp, shard_params_tp
 from . import train_step as ts
 from .optimizer import make_stage_optimizer
 from .stages import calc_max_epoch, get_stage_params
@@ -72,10 +81,16 @@ def do_train(cfg, model, data_loader, checkpointer, start_epoch: int = 0,
     place; returns the run's record (see the module docstring)."""
     if fsdp and mesh is None:
         raise ValueError("fsdp shards over the data mesh: pass mesh")
+    tp = pm.model_size(mesh) > 1
+    if fsdp and tp:
+        raise ValueError("fsdp and tensor parallelism exclude each other "
+                         "(TP already shards the weights, over 'model')")
     logger = logging.getLogger("CORE")
     max_epoch = calc_max_epoch(cfg.SOLVER.STAGES)
     lambdas = [float(v) for v in cfg.SOLVER.LAMBDAS]
     device = next(model.parameters()).device
+    # the steps see the data axis alone; the model axis is in the layers
+    mesh, full_mesh = pm.data_mesh(mesh), mesh
     world = 1 if mesh is None else mesh.size()
     is_main = pm.is_main_process()
     lr_scale = float(np.sqrt(world))
@@ -83,18 +98,25 @@ def do_train(cfg, model, data_loader, checkpointer, start_epoch: int = 0,
         cfg.SOLVER, "MIXED_PRECISION", False) else None)
     evaluates = test_loader is not None or od_loader is not None
     eval_model = model
-    if fsdp:
+    if fsdp or tp:
         # rank 0 evaluates a whole copy: the sharded model's forward is a
         # collective that the other ranks do not join
         if evaluates:
             eval_model = copy.deepcopy(model)
+    if fsdp:
         shard_params_fsdp(pm.replicate(model, mesh), mesh, compute_dtype)
+    if tp:
+        # global rank 0's whole weights everywhere, then each rank's slices
+        n_split = shard_params_tp(pm.replicate(model), full_mesh)
+        logger.info("tensor parallelism: mesh %s, %d parameters split over "
+                    "'model'", dict(zip(full_mesh.mesh_dim_names,
+                                        full_mesh.shape)), n_split)
 
     own_writer = writer is None and is_main
     if own_writer:
         writer = MetricWriter(cfg.OUTPUT_DIR)
     tracker = None
-    if world == 1 and (cfg.TENSORBOARD.BEST_SAMPLES_NUM > 0
+    if pm.get_world_size() == 1 and (cfg.TENSORBOARD.BEST_SAMPLES_NUM > 0
                        or cfg.TENSORBOARD.WORST_SAMPLES_NUM > 0):
         tracker = BestWorstSampleTracker(
             lambdas, cfg.TENSORBOARD.BEST_SAMPLES_NUM,
@@ -158,6 +180,8 @@ def do_train(cfg, model, data_loader, checkpointer, start_epoch: int = 0,
         ep = {"epoch": epoch, "stage": stage.stage, "frames": 0,
               "train_s": 0.0, "loader_wait_s": 0.0, "eval_s": 0.0,
               "checkpoint_s": 0.0}
+        if mesh is not None:
+            pm.synchronize()  # one start for every rank's clock
         t_epoch = t_wait = time.perf_counter()
         for it, (inputs, targets) in enumerate(data_loader):
             ep["loader_wait_s"] += time.perf_counter() - t_wait
@@ -191,13 +215,16 @@ def do_train(cfg, model, data_loader, checkpointer, start_epoch: int = 0,
             t_wait = time.perf_counter()
         _sync(device)
         ep["train_s"] = time.perf_counter() - t_epoch
+        if mesh is not None:
+            # the slowest rank's seconds: one frames/s on every rank
+            ep["train_s"] = pm.max_over_ranks(ep["train_s"], device)
 
         if tracker is not None:
             tracker.write(writer, global_step)
 
         t = time.perf_counter()
         params, opt_state = model, opt
-        if fsdp:
+        if fsdp or tp:
             # a collective: every rank joins, whatever it does next
             params, opt_state = pm.host_copy(model), opt.state_dict()
         ep["checkpoint_s"] = time.perf_counter() - t

@@ -31,8 +31,9 @@ no row-exactness either). Gradients are taken for the trainable
 parameters only (torch.autograd.grad), so a frozen module's weight
 gradients are never computed; its activations' are, where BPTT needs them.
 
-Data parallelism (`mesh`, the "data" DeviceMesh of parallel/mesh.py): each
-rank runs its own rows, and the step averages the gradients over the ranks
+Data parallelism (`mesh`, the "data" DeviceMesh of parallel/mesh.py, or
+the data x model mesh, whose "data" axis alone is used here): each rank
+runs its own rows, and the step averages the gradients over the ranks
 once, before clipping and the update (parallel/mesh.reduce_gradients; with
 accum_steps, the sum over the groups is reduced, then divided by G), and
 averages FrameAux, so every rank holds the global values, as the JAX step's
@@ -109,7 +110,7 @@ def draw_noise(model, x, generator: torch.Generator, mesh=None):
     With a data mesh, x holds this rank's rows: the noise of the global
     batch (N times the ranks) is drawn, and this rank's rows kept."""
     n, h, w, _ = x.shape
-    world = 1 if mesh is None else mesh.size()
+    world = 1 if mesh is None else pm.data_mesh(mesh).size()
     noise = tuple(uniform_noise(s, generator, x.dtype, x.device)
                   for s in model.noise_shapes(n * world, h, w))
     return noise if world == 1 else pm.global_batch(noise, mesh)
@@ -217,12 +218,16 @@ def _take_grads(model, opt) -> dict:
     return grads
 
 
-def _sync(grads: dict, aux: FrameAux, mesh):
+def _sync(grads: dict, aux: FrameAux, mesh, opt):
     """Gradients and FrameAux averaged over the data ranks (no-op without
-    a mesh)."""
+    a mesh). Under tensor parallelism a split parameter's gradient is its
+    slice's and stays on its rank; a whole parameter's is model rank 0's
+    on every model rank (equal in exact arithmetic; see
+    parallel/tensor.py)."""
     if mesh is None:
         return grads, aux
-    return (pm.reduce_gradients(grads, mesh),
+    grads = pm.reduce_gradients(grads, mesh)
+    return (pm.broadcast_whole_grads(grads, opt.split, mesh),
             FrameAux(*pm.mean_over_ranks(list(aux), mesh)))
 
 
@@ -249,7 +254,7 @@ def make_single_frame_step(model, opt, stage, *, lambdas, dist_lambda,
                 loss_dist_key=stage.loss_dist_key, pl_fn=pl_fn, noise=noise,
                 is_first_p=is_first_p, compute_dtype=compute_dtype)
             grads = _grads(loss, opt, model)
-        grads, aux = _sync(grads, detach_tree(aux), mesh)
+        grads, aux = _sync(grads, detach_tree(aux), mesh, opt)
         opt.step(grads)
         return aux, detach_tree(new_dpb)
 
@@ -317,7 +322,7 @@ def make_cascade_step(model, opt, stage, *, lambdas, dist_lambda, pl_lambda,
             with rowwise.whole_batch():
                 loss, (aux, dpb) = chain_loss(xs, targets, dpb0, noises)
                 grads = _grads(loss, opt, model)
-            grads, aux = _sync(grads, detach_tree(aux), mesh)
+            grads, aux = _sync(grads, detach_tree(aux), mesh, opt)
             opt.step(grads)
             return aux, detach_tree(dpb)
 
@@ -354,7 +359,7 @@ def make_cascade_step(model, opt, stage, *, lambdas, dist_lambda, pl_lambda,
             acc = _take_grads(model, opt)
         # groups are contiguous anchor blocks: concatenated, anchor order
         aux = FrameAux(*[torch.cat(f) for f in zip(*auxs)])
-        acc, aux = _sync(acc, aux, mesh)
+        acc, aux = _sync(acc, aux, mesh, opt)
         opt.step({name: None if v is None else v / G
                   for name, v in acc.items()})
         dpb = {}

@@ -2,7 +2,7 @@
 
     torchrun --standalone --nproc-per-node N \
         -m vcm_ts_tpu_torch.trainer_multi --config-file CFG.yaml \
-        [--fsdp] [--device cuda|cpu] [--seed 0] [KEY VALUE ...]
+        [--fsdp | --tp N] [--device cuda|cpu] [--seed 0] [KEY VALUE ...]
 
 (`torchrun` is `python -m torch.distributed.run`.) The port's counterpart
 of the root trainer_multi.py: torchrun's RANK, WORLD_SIZE and LOCAL_RANK
@@ -14,9 +14,14 @@ loader takes its shard of every epoch (DistributedSampler-style,
 SOLVER.LAMBDAS rows a rank), the test and object-detection loaders exist
 on rank 0 only, and the stage curriculum runs data parallel over the
 "data" mesh (train/train_loop.do_train with mesh=; the lr scales by
-sqrt(world size)), or fully sharded with --fsdp.
---tp > 1 (tensor parallelism) raises: it waits for ROADMAP.md Queue 1
-item 7. --fsdp and --tp exclude each other, as in the JAX CLI.
+sqrt(data ranks)), or fully sharded with --fsdp. --tp N (N > 1) builds the
+data x model mesh (parallel/mesh.make_global_dp_tp_mesh: N ranks a model
+group, model the minor axis) and splits the model's output channels over
+it (parallel/tensor.shard_params_tp); the loader shards by data index, so
+the ranks of one model group take the same rows. --fsdp and --tp exclude
+each other, as in the JAX CLI. Ranks may share a card only under gloo
+(parallel/mesh.local_device): that checks the arithmetic and measures no
+TP speed.
 """
 
 from __future__ import annotations
@@ -30,7 +35,6 @@ from .data import make_data_loader, make_object_detection_data_loader
 from .eval.detector import build_eval_detector
 from .models.dmc import DMC
 from .parallel import mesh as pm
-from .parallel.tensor import check_tp
 from .train.checkpoint import CheckPointer
 from .train.losses import get_perceptual_loss
 from .train.train_loop import do_train
@@ -47,8 +51,8 @@ def main(argv=None):
     parser.add_argument("--config-file", type=str, default="")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel width; > 1 waits for "
-                             "ROADMAP.md Queue 1 item 7")
+                        help="tensor-parallel width: ranks per model group "
+                             "(output channels split over them)")
     parser.add_argument("--fsdp", action="store_true",
                         help="shard weights, gradients and Adam moments "
                              "over the ranks (torch fully_shard)")
@@ -60,11 +64,16 @@ def main(argv=None):
     if args.fsdp and args.tp > 1:
         raise SystemExit("--fsdp and --tp are mutually exclusive (TP "
                          "already shards the weights, over 'model')")
-    check_tp(args.tp)
 
     pm.initialize_distributed(device=args.device)
     rank, world_size = pm.get_rank(), pm.get_world_size()
     device = pm.local_device(args.device)
+    if args.tp > 1 and not dist.is_initialized():
+        raise SystemExit("--tp splits the model over the ranks of a process "
+                         "group: start under torchrun (python -m "
+                         "torch.distributed.run)")
+    # the loader's shard: the data index (model-group ranks share rows)
+    data_rank, n_data = rank // args.tp, world_size // args.tp
 
     cfg = default_training_cfg()
     if args.config_file:
@@ -82,6 +91,14 @@ def main(argv=None):
     logger = setup_logger("CORE", rank, cfg.OUTPUT_DIR if rank == 0 else "")
     logger.info("world_size=%d rank=%d device=%s", world_size, rank,
                 device)
+    mesh = None
+    if dist.is_initialized():
+        mesh = (pm.make_global_dp_tp_mesh(args.tp, device_type=device.type)
+                if args.tp > 1
+                else pm.make_global_mesh(device_type=device.type))
+    if args.tp > 1:
+        logger.info("tensor parallelism: mesh %s (weights split over "
+                    "'model')", dict(zip(mesh.mesh_dim_names, mesh.shape)))
     if cfg.SOLVER.DEBUG_NANS:
         enable_debug_nans()
         logger.info("autograd anomaly mode ON (debug only: slow)")
@@ -108,9 +125,9 @@ def main(argv=None):
     if any(stage[7] == "true" for stage in cfg.SOLVER.STAGES):
         pl_fn = get_perceptual_loss(cfg, device, seed=args.seed)
 
-    # this rank's shard of every epoch; SOLVER.LAMBDAS rows a rank
+    # this data index's shard of every epoch; SOLVER.LAMBDAS rows a rank
     train_loader = make_data_loader(cfg, args.seed, is_train=True,
-                                    rank=rank, world_size=world_size)
+                                    rank=data_rank, world_size=n_data)
     test_loader = (make_data_loader(cfg, args.seed, is_train=False)
                    if rank == 0 and cfg.DATASET.TEST_ROOT_DIRS else None)
     od_loader = detector_fn = None
@@ -120,8 +137,6 @@ def main(argv=None):
         detector_fn = build_eval_detector(cfg, device=device)
 
     # one process without torchrun: no group, no mesh (--fsdp then raises)
-    mesh = (pm.make_global_mesh(device_type=device.type)
-            if dist.is_initialized() else None)
     if args.fsdp and mesh is None:
         raise SystemExit("--fsdp shards over the ranks of a process group: "
                          "start under torchrun (python -m "

@@ -172,6 +172,21 @@ def require_pth(path: str) -> None:
             + JAX_CKPT_ROUTE)
 
 
+def read_state_dict(path: str) -> dict:
+    """The tensors of a weights file for the weight tools: a port
+    checkpoint's "params" (train/checkpoint.py), a reference .pth's
+    "model" entry, or the .pth's own dict. A JAX .ckpt raises and names
+    the way across."""
+    if path.endswith(".ckpt"):
+        raise NotImplementedError(f"{path}: " + JAX_CKPT_ROUTE)
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    if "params" in blob and "extra" in blob:
+        return blob["params"]
+    if isinstance(blob.get("model"), dict):
+        return blob["model"]
+    return blob
+
+
 def load_codec_weights(model: nn.Module, path: str) -> nn.Module:
     """Load a .pth into a port codec model. Every parameter and buffer of
     the model must be in the file; keys the model lacks are ignored."""
