@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: kernels, bench, GOPs,
 serving, the VCM pipeline, training, the eval harness and the training
 loop, the perceptual losses and the Faster-RCNN eval detector,
-multi-process training and serving, and tensor parallelism.
+multi-process training and serving, tensor parallelism, and the engines'
+spatial mode.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -142,7 +143,25 @@ result line):
    gloo, not a TP speed; after the step both ranks hold bit-equal whole
    parameters and Adam moments (gated), and how far their own gradients
    of the unsplit parameters were apart before model rank 0's broadcast
-   is printed. The ranks' launches join the kernels line.
+   is printed. The ranks' launches join the kernels line;
+14. the engines' spatial mode (parallel/spatial.py, set_spatial_sharding):
+   (a) kernels A and D with a row window at 1088x1920 (every rank's
+   window of the packed f32 warp on 2 ranks and of the 64-channel bf16
+   two-pass warp on 4) equal the rows of their whole launch bit for bit,
+   one window timed beside its plain version and bound; (b) 2 gloo ranks
+   sharing the card code the seeded IntraNoAR and DMC (published widths)
+   at 1088x1920 in f32, I + 2 P, the P chain from the unsharded engine's
+   I recon: the I-frame and first P-frame streams equal the unsharded
+   engine's, the split decoder decodes the unsharded streams (recon drift
+   printed), each P-frame decodes to the encoder's recon bit for bit, all
+   ranks write the same bytes, and the planes that do not tile the ranks
+   (hooked: the hyper encoders' H/64 outputs) are whole and bit-equal on
+   every rank; (c) 4 gloo ranks, 576x1024 bf16 fast_warp, I + 1 P (H/16
+   slices of 9 rows, H/32 and H/64 whole): the same within-mode gates,
+   and whether the streams equal the unsharded ones is printed. Wall per
+   call against the unsharded engine, collectives per call, launches per
+   rank (host-staged gloo: no NCCL or multi-GPU figure). The ranks'
+   launches join the kernels line.
 
 Each phase's seconds are printed as it ends ([phase N ...] lines) and
 kept in chip_smoke.json ("phase_s"). The last three lines of standard output are the `kernels` JSON object, the
@@ -264,10 +283,13 @@ def nbytes(*ts):
 
 
 # ------------------------------------------------------------------ phase 2
-def _grid(flow):
-    """F.grid_sample's grid for a pixel flow (align_corners=True)."""
-    _, _, h, w = flow.shape
-    ys, xs = torch.meshgrid(torch.arange(h, device=flow.device),
+def _grid(flow, row0=0, h=None):
+    """F.grid_sample's grid for a pixel flow (align_corners=True); with a
+    row window, for the flow's rows from row0 of an image of h rows."""
+    _, _, hl, w = flow.shape
+    h = hl if h is None else h
+    ys, xs = torch.meshgrid(torch.arange(row0, row0 + hl,
+                                         device=flow.device),
                             torch.arange(w, device=flow.device),
                             indexing="ij")
     return torch.stack([(xs + flow[0, 0]) * (2.0 / (w - 1)) - 1,
@@ -3398,6 +3420,330 @@ def run_tp(smi, g):
     return out
 
 
+# ------------------------------------------------------------------ phase 14
+# the spatial mode's cases: (label, gloo ranks sharing the card, H, W,
+# dtype, fast_warp, P-frames)
+SP_CASES = (("f32 1088x1920", 2, H, W, "f32", False, 2),
+            ("bf16 fast_warp 576x1024", 4, 576, 1024, "bf16", True, 1))
+# planes of the DMC hooked on each rank (the mv hyper encoder's H/32 and
+# H/64 outputs, the contextual hyper encoder's H/64 one): those that do
+# not tile the ranks must be whole and bit-equal on every rank
+SP_HOOKS = (("mv_hyper_prior_encoder", 6, 32), ("mv_hyper_prior_encoder", 8,
+                                                 64),
+            ("contextual_hyper_prior_encoder", 4, 64))
+
+
+def check_spatial_windows(g):
+    """Kernels A and D with a row window (spatial mode) at 1088x1920: every
+    rank's window of the packed f32 warp (2 ranks) and of the 64-channel
+    bf16 two-pass warp, D=24 (4 ranks), bit for bit the rows of the whole
+    launch; one window timed against its plain version and, for A,
+    F.grid_sample on the window's grid. Bound: the image rows the
+    window's taps reach (from this flow), the flow's and the output's
+    rows."""
+    from vcm_ts_tpu_torch.ops import warp as tw
+    from vcm_ts_tpu_torch.ops import warp_twopass as td
+
+    rows = []
+    ims = [torch.rand((1, c, H, W), device="cuda", generator=g).to(
+        memory_format=CL) for c in (3, 64)]
+    flow = make_flow("smooth", H, W, g)
+    im16 = torch.rand((1, 64, H, W), device="cuda", generator=g).to(
+        dtype=torch.bfloat16, memory_format=CL)
+    d = 24
+    flow_d = (torch.randn((1, 2, H, W), device="cuda", generator=g)
+              * (1.5 * d)).to(memory_format=CL)
+    whole_a = tw.warp_cuda(ims, flow)
+    whole_d = td.warp_twopass_cuda(im16, flow_d, d)
+    for name, n_ranks in (("warp", 2), ("warp_twopass", 4)):
+        hl = H // n_ranks
+        for r in range(n_ranks):
+            r0 = r * hl
+            f = (flow if name == "warp" else flow_d)[:, :, r0:r0 + hl]
+            f = f.contiguous(memory_format=CL)
+            if name == "warp":
+                got = tw.warp_cuda(ims, f, row0=r0)
+                want = [t[:, :, r0:r0 + hl] for t in whole_a]
+            else:
+                got = [td.warp_twopass_cuda(im16, f, d, row0=r0)]
+                want = [whole_d[:, :, r0:r0 + hl]]
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"{name}: window {r} of {n_ranks} "
+                                     "differs from the whole launch's rows")
+        r0 = hl  # rank 1's window: rows above and below it are read
+        f = (flow if name == "warp" else flow_d)[:, :, r0:r0 + hl]
+        f = f.contiguous(memory_format=CL)
+        if name == "warp":
+            y0 = tw._clamped_coords(f, H, r0)[1]
+            src, out = ims, tw.warp_cuda(ims, f, row0=r0)
+            plain = tw.warp_plain(ims, f, row0=r0)
+            cat = torch.cat(ims, 1)
+            grid = _grid(f, row0=r0, h=H)
+            t = times(lambda: tw.warp_cuda(ims, f, row0=r0),
+                      lambda: tw.warp_plain(ims, f, row0=r0),
+                      lambda: F.grid_sample(
+                          cat, grid, mode="bilinear",
+                          padding_mode="border", align_corners=True))
+            flops = 11 * cat.shape[1] * hl * W
+            label = (f"67ch packed (3+64) {H}x{W} f32, smooth flow, window "
+                     f"rows {r0}:{r0 + hl} of {n_ranks} ranks")
+            lib = "F.grid_sample(border, align_corners=True) on the window"
+        else:
+            y0 = torch.stack([q // W for q in td._taps(f, d, H, r0)[0]])
+            src, out = [im16], [td.warp_twopass_cuda(im16, f, d, row0=r0)]
+            plain = [td.warp_twopass_plain(im16, f, d, row0=r0)]
+            t = times(lambda: td.warp_twopass_cuda(im16, f, d, row0=r0),
+                      lambda: td.warp_twopass_plain(im16, f, d, row0=r0),
+                      None)
+            grid = _grid(f, row0=r0, h=H).to(torch.bfloat16)
+            t.update(exact_warp_ms=graph_ms(
+                lambda: tw.warp_cuda([im16], f, row0=r0)),
+                grid_sample_ms=graph_ms(lambda: F.grid_sample(
+                    im16, grid, mode="bilinear", padding_mode="border",
+                    align_corners=True)),
+                flow_beyond_d=float((f.abs() > d).float().mean()))
+            flops = 9 * im16.shape[1] * hl * W
+            label = (f"64ch {H}x{W} D={d} bf16, window rows {r0}:{r0 + hl} "
+                     f"of {n_ranks} ranks")
+            lib = None
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(out, plain))
+        if err != 0.0:
+            raise AssertionError(f"{name} window: plain version differs "
+                                 f"by {err}")
+        reach = int(y0.max()) + 2 - int(y0.min())  # rows the taps reach
+        b, by = bound_ms(sum(nbytes(i) * min(reach, H) // H for i in src)
+                         + nbytes(f, *out), flops, torch.float32)
+        rows.append(dict(name=name, shape=label, max_abs_err=err, tol=0.0,
+                         **t, library=lib, bound_ms=b, bound_by=by,
+                         rows_reached=reach))
+    return rows
+
+
+def _sp_codecs(dev, dtype, fast_warp):
+    """The seeded IntraNoAR and DMC (published widths) as codecs, tables
+    built."""
+    from vcm_ts_tpu_torch.codec.engine import IntraCodec, VideoCodec
+    from vcm_ts_tpu_torch.utils.precision import cast_params
+    from vcm_ts_tpu_torch.utils.weights import make_dmc, make_intra
+
+    intra, dmc = make_intra(dev), make_dmc(dev, fast_warp=fast_warp)
+    if dtype == "bf16":
+        intra = cast_params(intra, torch.bfloat16)
+        dmc = cast_params(dmc, torch.bfloat16)
+    ic, vc = IntraCodec(intra, device=dev), VideoCodec(dmc, device=dev)
+    ic.update()
+    vc.update()
+    return ic, vc
+
+
+def sp_code(ic, vc, spec, whole, hooked=None):
+    """I + P-frames of spec["frames"] (numpy, whole) through the codecs
+    (spatial or not), each call timed (synchronized) with its
+    collectives; the P chain starts from make_dpb(spec["dpb_ref"]) (the
+    unsharded I recon: equal DPB state in both modes) or of its own I
+    recon. Returns the streams, every decoded frame whole on the CPU,
+    whether each P-frame's decode equals the encoder's recon, and the
+    seconds and collectives of each call. `hooked`: planes recorded by
+    hooks during P-frame 1's encode are kept from this dict."""
+    from vcm_ts_tpu_torch.models.dmc import make_dpb
+    from vcm_ts_tpu_torch.parallel import spatial as sp
+
+    h, w, frames = spec["h"], spec["w"], spec["frames"]
+    out = {"s": {}, "collectives": {}, "p": []}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        sp.reset_collectives()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out["s"][name] = time.perf_counter() - t
+        out["collectives"][name] = dict(sp.COLLECTIVES)
+        return res
+
+    out["i_stream"] = timed("I encode", lambda: ic.compress(frames[0], IQ))
+    rec0 = timed("I decode", lambda: ic.decompress(out["i_stream"], h, w,
+                                                   IQ))
+    out["i_recon"] = whole(rec0).cpu()
+    ref = spec.get("dpb_ref")
+    ref = out["i_recon"] if ref is None else ref
+    out["dpb0"] = dpb0 = vc.spatial_shard_tree(make_dpb(ref.cuda()))
+    dpb_e = dpb_d = dpb0
+    for t in range(1, len(frames)):
+        e = timed(f"P{t} encode", lambda: vc.compress(
+            frames[t], dpb_e, PQ, PQ, t == 1))
+        if t == 1 and hooked is not None:
+            out["hooked"] = dict(hooked)
+        d = timed(f"P{t} decode", lambda: vc.decompress(
+            dpb_d, e["bit_stream"], h, w, PQ, PQ, t == 1))
+        dpb_e, dpb_d = e["dpb"], d["dpb"]
+        out["p"].append({
+            "stream": e["bit_stream"],
+            "dec_equals_enc": all(torch.equal(d["dpb"][k], e["dpb"][k])
+                                  for k in e["dpb"]),
+            "recon": whole(d["dpb"]["ref_frame"]).cpu()})
+    return out
+
+
+def spatial_rank(spec):
+    """In each of spec["ranks"] gloo ranks sharing the card: the codecs
+    split by rows (set_spatial_sharding), one warm-up I + P, then sp_code
+    with the launches counted (reset just before it) and the DMC's hooked
+    planes; then the unsharded run's streams decoded by the split
+    decoder (I, then the P-frames through decode_gop), when the split
+    encoder wrote the same bytes."""
+    from vcm_ts_tpu_torch.ops import cuda_build
+    from vcm_ts_tpu_torch.parallel import mesh as pm
+    from vcm_ts_tpu_torch.parallel import spatial as sp
+
+    dev = pm.local_device("cuda")
+    ic, vc = _sp_codecs(dev, spec["dtype"], spec["fast_warp"])
+    mesh = sp.make_spatial_mesh(device_type="cuda")
+    ic.set_spatial_sharding(mesh)
+    vc.set_spatial_sharding(mesh)
+    h, w = spec["h"], spec["w"]
+
+    def whole(t):
+        return sp.gather_spatial(t, mesh, h, w)
+
+    warm = dict(spec, frames=spec["frames"][:2])
+    sp_code(ic, vc, warm, whole)  # cuDNN plans, tables
+    hooked = {}
+    hooks = [getattr(vc.model, mod)[i].register_forward_hook(
+        lambda m, a, o, k=f"{mod}[{i}] H/{s}": hooked.__setitem__(
+            k, o.detach().cpu())) for mod, i, s in SP_HOOKS]
+    cuda_build.reset_launches()
+    out = sp_code(ic, vc, spec, whole, hooked)
+    out["launches"] = dict(cuda_build.LAUNCHES)
+    for hook in hooks:
+        hook.remove()
+    plain = spec["plain"]
+    same = (out["i_stream"] == plain["i_stream"]
+            and out["p"][0]["stream"] == plain["p"][0]["stream"])
+    out["decoded_plain"] = None
+    if same:  # the unsharded streams, through the split decoder
+        rec0 = ic.decompress(plain["i_stream"], h, w, IQ)
+        recons, _ = vc.decode_gop(out["dpb0"],
+                                  [p["stream"] for p in plain["p"]], h, w,
+                                  PQ, PQ, True)
+        torch.cuda.synchronize()
+        out["decoded_plain"] = [whole(r).cpu() for r in [rec0] + recons]
+    del out["dpb0"]
+    return out
+
+
+def _drift(a, b):
+    """(largest |a - b|, share of bit-equal elements)."""
+    return (float((a.float() - b.float()).abs().max()),
+            float((a == b).float().mean()))
+
+
+def run_spatial(smi, g):
+    """Phase 14: the engines' spatial mode on gloo ranks sharing the card,
+    with gates; kernels A and D with a row window."""
+    from vcm_ts_tpu_torch.parallel.spatial import tiles
+    from vcm_ts_tpu_torch.parallel.spawn import run_ranks
+
+    t_phase = time.perf_counter()
+    out = {"rows": check_spatial_windows(g), "cases": {}}
+    say_rows(out["rows"])
+    note = ("gloo ranks sharing one card, every gather staged through the "
+            "host: checks the arithmetic; no NVLink or NCCL figure")
+    launches = {}
+    for label, n, h, w, dtype, fast_warp, n_p in SP_CASES:
+        frames = [f.numpy() for f in moving_frames(n_p + 1, h, w, seed=14)]
+        spec = {"frames": frames, "h": h, "w": w, "dtype": dtype,
+                "fast_warp": fast_warp, "ranks": n}
+        ic, vc = _sp_codecs("cuda", dtype, fast_warp)
+        sp_code(ic, vc, dict(spec, frames=frames[:2]), lambda t: t)  # warm
+        plain = sp_code(ic, vc, spec, lambda t: t)
+        del ic, vc, plain["dpb0"]
+        torch.cuda.empty_cache()
+        spec.update(plain=plain, dpb_ref=plain["i_recon"])
+        t = time.perf_counter()
+        ranks = [r["result"] for r in run_ranks(
+            spatial_rank, n, spec, backend="gloo", device="cuda",
+            timeout=900)]
+        ranks_s = time.perf_counter() - t
+        first = ranks[0]
+        # gates: the planes that do not tile the ranks are whole on every
+        # rank and bit-equal
+        whole_planes = {k: v for k, v in first["hooked"].items()
+                        if not tiles(h // int(k.split("H/")[1]), n)}
+        for k, v in whole_planes.items():
+            if v.shape[2] != h // int(k.split("H/")[1]):
+                raise AssertionError(f"[spatial {label}] {k}: "
+                                     f"{v.shape[2]} rows, not whole")
+        for i, r in enumerate(ranks):
+            if (r["i_stream"] != first["i_stream"]
+                    or [p["stream"] for p in r["p"]]
+                    != [p["stream"] for p in first["p"]]):
+                raise AssertionError(f"[spatial {label}] rank {i} wrote "
+                                     "other bytes than rank 0")
+            for t_, p in enumerate(r["p"]):
+                if not p["dec_equals_enc"]:
+                    raise AssertionError(
+                        f"[spatial {label}] rank {i}, P-frame {t_ + 1}: the "
+                        "split decoder's DPB differs from the encoder's")
+            for k, v in whole_planes.items():
+                if not torch.equal(r["hooked"][k], v):
+                    raise AssertionError(f"[spatial {label}] the whole plane"
+                                         f" {k} differs on rank {i}")
+        recons = [first["i_recon"]] + [p["recon"] for p in first["p"]]
+        for t_, rec in enumerate(recons):
+            if rec.shape != (1, h, w, 3) or not torch.isfinite(
+                    rec.float()).all():
+                raise AssertionError(f"[spatial {label}] frame {t_}: bad "
+                                     "decoded frame")
+        same = {"I": first["i_stream"] == plain["i_stream"],
+                "P1": first["p"][0]["stream"] == plain["p"][0]["stream"]}
+        drift = None
+        if dtype == "f32":  # (i): the cross-mode gates
+            if not all(same.values()):
+                raise AssertionError(f"[spatial {label}] streams differ "
+                                     f"from the unsharded engine's: {same}")
+            dec = first["decoded_plain"]
+            if dec is None or len(dec) != len(recons):
+                raise AssertionError(f"[spatial {label}] the split decoder "
+                                     "did not decode the unsharded streams")
+            plain_recons = ([plain["i_recon"]]
+                            + [p["recon"] for p in plain["p"]])
+            drift = [_drift(a, b) for a, b in zip(dec, plain_recons)]
+        case = {
+            "ranks": n, "ranks_s": ranks_s, "same_as_unsharded": same,
+            "drift": drift, "bytes": [len(first["i_stream"])]
+            + [len(p["stream"]) for p in first["p"]],
+            "s": first["s"], "plain_s": plain["s"],
+            "collectives": first["collectives"],
+            "launches": [r["launches"] for r in ranks],
+            "whole_planes": {k: tuple(v.shape) for k, v in
+                             whole_planes.items()}}
+        out["cases"][label] = case
+        for r in ranks:
+            launches = _add_launches(launches, r["launches"])
+        _need(_add_launches(*case["launches"]),
+              ("warp_twopass" if fast_warp else "warp", "subpel_conv1x1",
+               "pixel_shuffle_relayout"), f"spatial {label}")
+        walls = "; ".join(
+            f"{k} {case['s'][k] * 1e3:.1f} ms (unsharded "
+            f"{case['plain_s'][k] * 1e3:.1f})" for k in case["s"])
+        say(f"[spatial] {label} on {n} ranks: I + {n_p} P, streams "
+            f"{case['bytes']} B, equal to the unsharded engine's {same}, "
+            f"every rank's bytes equal, each P-frame decoded to the "
+            f"encoder's recon bit for bit, whole planes bit-equal across "
+            f"ranks {case['whole_planes']}; the unsharded streams decoded "
+            f"by the split decoder: recon drift (largest, bit-equal share) "
+            f"{drift}; wall per call {walls}; ranks {ranks_s:.1f} s ({note};"
+            f" {smi})")
+        say(f"[spatial] {label}: collectives per call (rank 0) "
+            f"{case['collectives']}; kernel launches per rank "
+            f"{case['launches'][0]}")
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def _g3(xs):
     return "[" + ", ".join(f"{x:.3g}" for x in xs) + "]"
 
@@ -3562,17 +3908,20 @@ def main():
     tensor_parallel = run_tp(smi, g)
     rows += tensor_parallel["rows"]
     phase_done("13 tensor parallel")
+    spatial = run_spatial(smi, g)
+    rows += spatial["rows"]
+    phase_done("14 spatial")
 
     # one entry per kernel: its first (main-path) shape, and its launches
     # summed over the main paths: the two GOPs, the two batched serving
     # runs, the warm VCM pipeline run, one cascade train step, the eval
     # harness's sequential run, the trainer's run, one cascade step with
-    # the perceptual loss, the trainer's perceptual run, and phase 12's and
-    # phase 13's ranks (each read with the counts reset just before it)
+    # the perceptual loss, the trainer's perceptual run, and phases 12's,
+    # 13's and 14's ranks (each read with the counts reset just before it)
     paths = gops + serving["batch"] + [vcm, train, evaluation, loop,
                                        perceptual["step"],
                                        perceptual["loop"], parallel,
-                                       tensor_parallel]
+                                       tensor_parallel, spatial]
     kernels = []
     for name in ("warp", "warp_bwd", "subpel_conv1x1",
                  "pixel_shuffle_relayout", "space_to_depth", "warp_twopass"):
@@ -3594,6 +3943,8 @@ def main():
                    "tensor_parallel": {k: v for k, v in
                                        tensor_parallel.items()
                                        if k != "rows"},
+                   "spatial": {k: v for k, v in spatial.items()
+                               if k != "rows"},
                    "phase_s": phase_s, "kernels": kernels}, f,
                   indent=1, default=float)
     say(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s "

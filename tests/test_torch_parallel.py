@@ -33,7 +33,7 @@ frames made with numpy, 8 global rows (2 ranks of 4).
   --fsdp.
 - The harness: fleet_mesh_size against the JAX harness's, test_video's
   2-rank split against one process, fleet batches against unsharded
-  ones; the spatial mode, which waits for ROADMAP.md item 8, raises.
+  ones; fleet and spatial mode refuse each other.
 """
 
 from __future__ import annotations
@@ -669,10 +669,30 @@ def test_fleet_rows_that_do_not_tile_run_unsharded(fleet_codecs,
     assert calls == []
 
 
-def test_spatial_sharding_waits_for_its_roadmap_item(fleet_codecs):
+class _OneRankMesh:
+    """A one-rank spatial mesh: what set_spatial_sharding reads of one."""
+
+    def get_group(self):
+        return None
+
+    def size(self):
+        return 1
+
+    def get_local_rank(self):
+        return 0
+
+
+def test_spatial_and_fleet_modes_refuse_each_other(fleet_codecs):
+    """A fleet codec refuses spatial mode and a spatial codec refuses a
+    fleet (the JAX engine asserts the first way only)."""
     for codec in fleet_codecs[1]:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            codec.set_spatial_sharding(None)
+        with pytest.raises(ValueError, match="exclude each other"):
+            codec.set_spatial_sharding(_OneRankMesh())
+    for codec in fleet_codecs[0]:
+        spatial = type(codec)(copy.deepcopy(codec.model), device="cpu")
+        spatial.set_spatial_sharding(_OneRankMesh())
+        with pytest.raises(ValueError, match="exclude each other"):
+            spatial.set_fleet_sharding(["cpu", "cpu"])
 
 
 def test_video_fleet_needs_batch_rates_and_one_device_disables(harness,

@@ -240,3 +240,163 @@ def tp_jobs(spec: dict, trainer_jobs: list) -> dict:
         out["mesh_error"] = str(e)
     out["trainer"] = trainer_case(trainer_jobs)
     return out
+
+
+# --------------------------------------------------------- spatial sharding
+def _spatial_codecs(spec, dev):
+    """An IntraNoAR and a DMC codec from spec's states, tables built."""
+    from vcm_ts_tpu_torch.codec.engine import IntraCodec, VideoCodec
+    from vcm_ts_tpu_torch.models.dmc import DMC
+    from vcm_ts_tpu_torch.models.intra import IntraNoAR
+
+    intra = IntraNoAR(N=spec["intra"]["N"],
+                      anchor_num=spec["intra"]["anchors"], device=dev)
+    intra.load_state_dict(spec["intra"]["state"], strict=True)
+    cmv, cn, cm = spec["dmc"]["channels"]
+    dmc = DMC(anchor_num=spec["dmc"]["anchors"], channel_mv=cmv,
+              channel_N=cn, channel_M=cm, device=dev)
+    dmc.load_state_dict(spec["dmc"]["state"], strict=True)
+    codecs = IntraCodec(intra, device=dev), VideoCodec(dmc, device=dev)
+    for c in codecs:
+        c.update()
+    return codecs
+
+
+def spatial_codec_case(spec: dict) -> dict:
+    """The engines' spatial mode on every rank of the world (or, with no
+    process group, unsharded in one process): an I-frame, then P-frames
+    1 and 2 chained from make_dpb(frames[0]), each decoded back, with the
+    collectives of each call. spec: intra (N, anchors, state), dmc
+    (channels, anchors, state), frames (NHWC numpy, whole), h, w, iq, pq,
+    device, p_frames (1 or 2),
+    gop (also encode_gop / decode_gop of the P-frames), batch (also an
+    I-frame compress_batch / decompress_batch of frames 0 and 1 at q
+    rows batch_q). Returns the streams, the decoded frames gathered
+    whole, the encoder's recons, the planes kept whole on this rank
+    (hooked: the mv hyper encoder's H/32 and H/64 outputs), this rank's
+    rows of frames[0] and of a small plane through spatial_shard_tree,
+    the engines' entropy-estimated forwards (the I-frame, P-frame 1) and
+    the collectives of each call."""
+    import torch.distributed as dist
+
+    from vcm_ts_tpu_torch.models.dmc import make_dpb
+    from vcm_ts_tpu_torch.parallel import mesh as pm
+    from vcm_ts_tpu_torch.parallel import spatial as sp
+
+    dev = torch.device(spec.get("device", "cpu"))
+    if dev.type == "cuda":
+        dev = pm.local_device("cuda")
+    ic, vc = _spatial_codecs(spec, dev)
+    h, w, iq, pq = spec["h"], spec["w"], spec["iq"], spec["pq"]
+    frames = [np.asarray(f, np.float32) for f in spec["frames"]]
+    mesh = None
+    if dist.is_initialized():
+        mesh = sp.make_spatial_mesh(device_type=dev.type)
+        ic.set_spatial_sharding(mesh)
+        vc.set_spatial_sharding(mesh)
+
+    def whole(tree):
+        return tree if mesh is None else sp.gather_spatial(tree, mesh, h, w)
+
+    out = {"collectives": {}}
+
+    def counted(name, fn):
+        sp.reset_collectives()
+        res = fn()
+        out["collectives"][name] = dict(sp.COLLECTIVES)
+        return res
+
+    hooked = {}
+    hyper = vc.model.mv_hyper_prior_encoder
+    hooks = [hyper[i].register_forward_hook(
+        lambda m, a, o, i=i: hooked.__setitem__(i, o.detach().cpu()))
+        for i in (6, 8)]
+    i_stream = counted("I encode", lambda: ic.compress(frames[0], iq))
+    rec0 = counted("I decode", lambda: ic.decompress(i_stream, h, w, iq))
+    out["i_stream"], out["i_recon"] = i_stream, _np(whole(rec0))
+    dpb0 = vc.spatial_shard_tree(make_dpb(torch.from_numpy(frames[0]),
+                                          vc.model.channel_N,
+                                          vc.model.channel_M))
+    dpb0 = {k: v.to(dev) for k, v in dpb0.items()}
+    enc, dec, dpb_e, dpb_d = [], [], dpb0, dpb0
+    for t in range(1, spec.get("p_frames", 2) + 1):
+        e = counted(f"P{t} encode", lambda: vc.compress(
+            frames[t], dpb_e, pq, pq, t == 1))
+        d = counted(f"P{t} decode", lambda: vc.decompress(
+            dpb_d, e["bit_stream"], h, w, pq, pq, t == 1))
+        dpb_e, dpb_d = e["dpb"], d["dpb"]
+        enc.append({"stream": e["bit_stream"],
+                    "recon": _np(whole(e["dpb"]["ref_frame"]))})
+        dec.append(_np(whole(d["dpb"]["ref_frame"])))
+        if t == 1:
+            out["whole_planes"] = {k: _np(v) for k, v in hooked.items()}
+    for hook in hooks:
+        hook.remove()
+    out["p_enc"], out["p_dec"] = enc, dec
+    est_i = ic.forward(frames[0], iq)
+    est_p = vc.forward(frames[1], dpb0, pq, pq, True)
+    out["forward"] = {"i_bpp": _np(est_i["bpp"]),
+                      "x_hat": _np(whole(est_i["x_hat"])),
+                      "p_bpp": _np(est_p["bpp"]),
+                      "ref_frame": _np(whole(est_p["dpb"]["ref_frame"]))}
+    if spec.get("gop"):
+        streams, last = vc.encode_gop(frames[1:len(enc) + 1], dpb0, pq, pq,
+                                      True)
+        outs, _ = vc.decode_gop(dpb0, streams, h, w, pq, pq, True)
+        out["gop"] = {"streams": streams,
+                      "enc_recon": _np(whole(last["ref_frame"])),
+                      "dec": [_np(whole(o)) for o in outs]}
+    if spec.get("batch"):
+        q = np.asarray(spec["batch_q"], np.float32).reshape(-1, 1, 1, 1)
+        xb = np.concatenate(frames[:2])
+        streams = ic.compress_batch(xb, q)
+        recons = ic.decompress_batch(streams, h, w, q)
+        alone = [ic.compress(frames[i], float(q[i, 0, 0, 0]))
+                 for i in range(2)]
+        out["batch"] = {"streams": streams, "alone": alone,
+                        "recon": _np(whole(recons))}
+    if mesh is not None:
+        small = np.zeros((1, h // 64, w // 64, 2), np.float32)
+        rows = vc.spatial_shard_tree({"x": frames[0], "small": small})
+        out["shard"] = _np(rows)
+    return out
+
+
+def spatial_forward_case(spec: dict) -> dict:
+    """spatial_forward of a DMC (is_first_p, q-scales 1) on every rank of
+    the world, or the unsharded forward in one process, on the CPU: spec
+    dmc (channels, anchors, state), x, ref (NHWC numpy, whole). Returns
+    ref_frame gathered whole, bpp, and the collectives."""
+    import torch.distributed as dist
+
+    from vcm_ts_tpu_torch.models.dmc import DMC, make_dpb
+    from vcm_ts_tpu_torch.parallel import spatial as sp
+
+    dev = torch.device("cpu")
+    cmv, cn, cm = spec["dmc"]["channels"]
+    model = DMC(anchor_num=spec["dmc"]["anchors"], channel_mv=cmv,
+                channel_N=cn, channel_M=cm, device=dev).eval()
+    model.load_state_dict(spec["dmc"]["state"], strict=True)
+    x = _t(spec["x"], dev)
+    dpb = make_dpb(_t(spec["ref"], dev), cn, cm)
+    sp.reset_collectives()
+    if not dist.is_initialized():
+        with torch.no_grad():
+            res = model(x, dpb, 1.0, 1.0, True, training=False)
+        return {"ref_frame": _np(res["dpb"]["ref_frame"]),
+                "bpp": _np(res["bpp"])}
+    mesh = sp.make_spatial_mesh(device_type="cpu")
+    sp.shard_spatial_model(sp.replicate(model, mesh), mesh)
+    fwd = sp.spatial_forward(model, mesh, is_first_p=True)
+    res = fwd(sp.shard_spatial(x, mesh), sp.shard_spatial_dpb(dpb, mesh),
+              1.0, 1.0)
+    _, h, w, _ = spec["x"].shape
+    return {"ref_frame": _np(sp.gather_spatial(res["dpb"]["ref_frame"], mesh,
+                                               h, w)),
+            "bpp": _np(res["bpp"]), "collectives": dict(sp.COLLECTIVES)}
+
+
+def spatial_jobs(codec_spec: dict, forward_spec: dict) -> dict:
+    """In this rank: spatial_codec_case, then spatial_forward_case."""
+    return {"codec": spatial_codec_case(codec_spec),
+            "forward": spatial_forward_case(forward_spec)}

@@ -6,6 +6,21 @@ Counterpart of the single-device part of vcm_ts_tpu/codec/engine.py
 `decode_gop`, `encode_decode`. Between stages only int16 symbol planes and
 uint8 scale-index planes cross to the host.
 
+Spatial mode (`set_spatial_sharding`, the JAX engine's spatial sharding):
+one stream's frames split by rows (H) over the ranks of a process group,
+SPMD (every rank makes the same calls; parallel/spatial.py). Each rank
+holds and computes its rows of every plane that tiles the group (the rest
+whole); the convs exchange halo rows and the warps gather their images.
+The host rANS is unchanged: every rank all-gathers the symbol and index
+planes, runs the same coder and so writes, and reads, the same stream,
+and uploads only its rows of each decoded plane. Frames given as host
+(numpy) arrays are whole, and the engine takes this rank's rows; tensors
+are taken as `spatial_shard_tree` gives them (this rank's rows). The
+DPB, the recon and the decoded frames come back as this rank's rows
+(parallel/spatial.gather_spatial joins them); heights and widths stay
+global. One call at a time through a spatial codec: the ranks'
+collectives must come in the same order.
+
 The ENCODER derives every prior the stream depends on through the decoder's
 own stage methods (plus encoder-only analysis), so encoder and decoder see
 bit-identical priors on any frame chain. On the GPU that also needs cuDNN
@@ -53,7 +68,7 @@ from ..entropy.coder import EntropyCoder
 from ..entropy.gaussian import GaussianCoder
 from ..models import common as cm
 from ..ops.layers import SubpelConv
-from ..parallel.mesh import SPATIAL_WAITS
+from ..parallel.spatial import map_tree, shard_spatial_model
 from ..utils.device import resolve_device, set_codec_numerics, to_device
 from . import bitstream as bs
 
@@ -106,11 +121,6 @@ class _Pull:
         if self._event is not None:
             self._event.synchronize()
         return {k: v.numpy() for k, v in self._host.items()}
-
-
-def _fetch(t: torch.Tensor) -> np.ndarray:
-    """One device plane -> numpy, waiting for it."""
-    return _Pull({"t": t}).wait()["t"]
 
 
 def _rows(a: np.ndarray) -> list:
@@ -248,8 +258,8 @@ def _gather(parts: list, device):
 
 
 class _Engine:
-    """What both codecs share: device placement, numerics, symbol IO, and
-    fleet serving.
+    """What both codecs share: device placement, numerics, symbol IO,
+    fleet serving and spatial mode (module docstring).
 
     Fleet serving (`set_fleet_sharding`, the port's _FleetShardingMixin of
     the JAX engine): each batched call (compress_batch, decompress_batch,
@@ -260,10 +270,11 @@ class _Engine:
     (ops/rowwise.py), so every stream's bytes and recon equal the
     unsharded call's. A call whose N does not tile the fleet runs
     unsharded, as the JAX engine's shard_batch / _put leave such a
-    leading dimension whole."""
+    leading dimension whole. Fleet and spatial mode exclude each other."""
 
     _TABLES = ("y_table", "z_table")
     _fleet = None
+    _spatial = None  # the SpatialAxis of set_spatial_sharding
 
     def __init__(self, model, distribution: str, device):
         self.device = resolve_device(device)
@@ -294,18 +305,56 @@ class _Engine:
         return self.gaussian.build_indexes(scales).to(torch.uint8)
 
     def _up(self, symbols) -> torch.Tensor:
-        return to_device(torch.from_numpy(
-            np.ascontiguousarray(symbols, dtype=np.int16)), self.device)
+        """A whole host plane on the device (spatial mode: this rank's
+        rows)."""
+        t = torch.from_numpy(np.ascontiguousarray(symbols, dtype=np.int16))
+        if self._spatial is not None:
+            t = self._spatial.own_rows(t, 1)
+        return to_device(t, self.device)
 
     def _frame(self, x) -> torch.Tensor:
-        x = to_device(torch.as_tensor(x), self.device)
+        host = isinstance(x, np.ndarray)
+        x = torch.as_tensor(x)
+        if host and self._spatial is not None:
+            x = self._spatial.own_rows(x, 1)
+        x = to_device(x, self.device)
         return x.to(self.param_dtype).contiguous()
 
+    def _frame_of(self, x):
+        """Spatial mode: the context of a frame argument's size (a host
+        array is whole, a tensor this rank's rows); else a no-op."""
+        sp = self._spatial
+        if sp is None:
+            return contextlib.nullcontext()
+        h = x.shape[1] if isinstance(x, np.ndarray) else sp.n * x.shape[1]
+        return sp.frame(h, x.shape[2])
+
+    def _sized(self, height: int, width: int):
+        """Spatial mode: the context of a height x width frame."""
+        sp = self._spatial
+        return (contextlib.nullcontext() if sp is None
+                else sp.frame(height, width))
+
+    def _pull_planes(self, planes: dict) -> _Pull:
+        """Queue device planes to the host, each whole (spatial mode:
+        gathered where split)."""
+        if self._spatial is not None:
+            planes = {k: self._spatial.whole(v, 1) for k, v in planes.items()}
+        return _Pull(planes)
+
+    def _fetch(self, t: torch.Tensor) -> np.ndarray:
+        """One device plane -> numpy (whole), waiting for it."""
+        return self._pull_planes({"t": t}).wait()["t"]
+
+    def _row0(self, t) -> int:
+        return cm.plane_row0(self._spatial, t)
+
     def _sym0(self, y, means, q_step):
-        return _i16(cm.encode_symbols_step0(y, means, q_step))
+        return _i16(cm.encode_symbols_step0(y, means, q_step, self._row0(y)))
 
     def _sym1(self, y, means_0, means_1, q_step):
-        return _i16(cm.encode_symbols_step1(y, means_0, means_1, q_step))
+        return _i16(cm.encode_symbols_step1(y, means_0, means_1, q_step,
+                                            self._row0(y)))
 
     @staticmethod
     def _read(pool, coders, indexes, table) -> np.ndarray:
@@ -328,6 +377,9 @@ class _Engine:
         """Serve batched calls over `devices` (e.g. ["cuda:0", "cuda:1"];
         a device may repeat: its replicas then share it, each on its own
         stream). Returns the fleet's size."""
+        if self._spatial is not None:
+            raise ValueError("spatial and fleet sharding exclude each other:"
+                             " this codec is split by rows")
         devices = [resolve_device(d) for d in devices]
         self._fleet = [type(self)(copy.deepcopy(self.model), device=d)
                        for d in devices]
@@ -338,8 +390,38 @@ class _Engine:
                                else None for d in devices]
         return len(self._fleet)
 
-    def set_spatial_sharding(self, *args, **kwargs):
-        raise NotImplementedError(SPATIAL_WAITS)
+    def set_spatial_sharding(self, mesh):
+        """Split every call's frames by rows over `mesh`
+        (parallel/spatial.make_spatial_mesh; every rank of it makes the
+        same calls): the codec's model takes its spatial form in place.
+        Within the mode the decoder reproduces the encoder's recon bit for
+        bit; across modes, from equal DPB state, the streams are the
+        unsharded engine's as long as the u8 scale indexes absorb the
+        rounding of the other conv shapes, and the recons agree up to that
+        rounding (the JAX engine's contract). Returns this rank's
+        SpatialAxis."""
+        if self._fleet:
+            raise ValueError("spatial and fleet sharding exclude each other:"
+                             " this codec serves a fleet")
+        self._spatial = shard_spatial_model(self.model, mesh)
+        return self._spatial
+
+    def spatial_shard_tree(self, tree):
+        """This rank's rows, on the codec's device, of each whole NHWC
+        plane of `tree` (frames, the DPB) that tiles the spatial axis;
+        other planes whole, other leaves as they are. No-op without
+        spatial mode."""
+        sp = self._spatial
+        if sp is None:
+            return tree
+
+        def put(v):
+            if isinstance(v, (np.ndarray, torch.Tensor)) and v.ndim == 4:
+                return to_device(sp.own_rows(torch.as_tensor(v), 1),
+                                 self.device)
+            return v
+
+        return map_tree(put, tree)
 
     def _fleet_call(self, n: int, method: str, *args):
         """getattr(replica, method)(*its rows of args) on every replica,
@@ -412,8 +494,9 @@ class VideoCodec(_Engine):
                                y_q_scale, is_first_p)
         if out is not None:
             return out
-        return self.model(self._frame(x), dpb, mv_y_q_scale, y_q_scale,
-                          is_first_p)
+        with self._frame_of(x):
+            return self.model(self._frame(x), dpb, mv_y_q_scale, y_q_scale,
+                              is_first_p)
 
     # --------------------------------------------------------------- compress
     def _compress_planes(self, x, dpb, mv_y_q_scale, y_q_scale, is_first_p):
@@ -446,10 +529,9 @@ class VideoCodec(_Engine):
             "dpb": out6["dpb"],
         }
 
-    @staticmethod
-    def _pull(out) -> _Pull:
+    def _pull(self, out) -> _Pull:
         """Queue one frame's ten planes to the host (JAX: one device_get)."""
-        return _Pull({k: v for k, v in out.items() if k != "dpb"})
+        return self._pull_planes({k: v for k, v in out.items() if k != "dpb"})
 
     def _encode_host(self, h) -> bytes:
         """One frame's host symbol planes -> its rANS stream (a fresh coder
@@ -472,9 +554,11 @@ class VideoCodec(_Engine):
     @torch.no_grad()
     def compress(self, x, dpb, mv_y_q_scale, y_q_scale, is_first_p=False):
         self._check_tables()
-        out = self._compress_planes(x, dpb, mv_y_q_scale, y_q_scale,
-                                    is_first_p)
-        return {"bit_stream": self._encode_host(self._pull(out).wait()),
+        with self._frame_of(x):
+            out = self._compress_planes(x, dpb, mv_y_q_scale, y_q_scale,
+                                        is_first_p)
+            pull = self._pull(out)
+        return {"bit_stream": self._encode_host(pull.wait()),
                 "dpb": out["dpb"]}
 
     @torch.no_grad()
@@ -491,9 +575,11 @@ class VideoCodec(_Engine):
                                mv_y_q_scale, y_q_scale, is_first_p)
         if out is not None:
             return out
-        out = self._compress_planes(x, dpb, mv_y_q_scale, y_q_scale,
-                                    is_first_p)
-        return {"bit_streams": self._encode_rows(self._pull(out).wait()),
+        with self._frame_of(x):
+            out = self._compress_planes(x, dpb, mv_y_q_scale, y_q_scale,
+                                        is_first_p)
+            pull = self._pull(out)
+        return {"bit_streams": self._encode_rows(pull.wait()),
                 "dpb": out["dpb"]}
 
     @torch.no_grad()
@@ -509,10 +595,11 @@ class VideoCodec(_Engine):
         self._check_tables()
         streams, pending = [], None
         for i, x in enumerate(frames):
-            out = self._compress_planes(x, dpb, mv_y_q_scale, y_q_scale,
-                                        is_first_p and i == 0)
+            with self._frame_of(x):
+                out = self._compress_planes(x, dpb, mv_y_q_scale, y_q_scale,
+                                            is_first_p and i == 0)
+                pull = self._pull(out)
             dpb = out["dpb"]
-            pull = self._pull(out)
             if pending is not None:
                 streams.append(self._encode_host(pending.wait()))
             pending = pull
@@ -534,19 +621,19 @@ class VideoCodec(_Engine):
             return self._read(pool, coders, indexes, table)
 
         idx0, carry = self._stage1(self._up(mv_z_hat), dpb)
-        pull = _Pull({"idx": idx0})
+        pull = self._pull_planes({"idx": idx0})
         if during_stage1 is not None:
             during_stage1()
         mv_y_q_r_0 = read(_rows(pull.wait()["idx"]), self.y_table)
         idx1, carry = self._stage2(self._up(mv_y_q_r_0), carry)
-        mv_y_q_r_1 = read(_rows(_fetch(idx1)), self.y_table)
+        mv_y_q_r_1 = read(_rows(self._fetch(idx1)), self.y_table)
         contexts = self._stage3a(self._up(mv_y_q_r_1), carry, dpb,
                                  mv_y_q_scale, is_first_p)
         z_hat = read(static, self.z_table)  # while stage 3a runs
         idx_y0, carry = self._stage3b(self._up(z_hat), contexts[2], dpb)
-        y_q_r_0 = read(_rows(_fetch(idx_y0)), self.y_table)
+        y_q_r_0 = read(_rows(self._fetch(idx_y0)), self.y_table)
         idx_y1, carry = self._stage5(self._up(y_q_r_0), carry)
-        y_q_r_1 = read(_rows(_fetch(idx_y1)), self.y_table)
+        y_q_r_1 = read(_rows(self._fetch(idx_y1)), self.y_table)
         out = self._stage6(self._up(y_q_r_1), carry, contexts, y_q_scale)
         out["symbols"] = (mv_z_hat, mv_y_q_r_0, mv_y_q_r_1, z_hat, y_q_r_0,
                           y_q_r_1)
@@ -582,7 +669,7 @@ class VideoCodec(_Engine):
             return out
         coders = _decoders(streams)
         z_idx = self._z_idx(height, width)
-        with _pool(len(coders)) as pool:
+        with _pool(len(coders)) as pool, self._sized(height, width):
             mv_z_hat = self._read(pool, coders, [z_idx] * len(coders),
                                   self.z_mv_table)
             out = self._decode_frame(pool, coders, mv_z_hat, dpb,
@@ -612,12 +699,13 @@ class VideoCodec(_Engine):
 
         prefetch(0)
         outs = []
-        for i in range(len(coders)):
-            dpb = self._decode_frame(
-                None, coders[i:i + 1], mv_z.pop(i), dpb, mv_y_q_scale,
-                y_q_scale, is_first_p and i == 0, z_idx,
-                during_stage1=lambda i=i: prefetch(i + 1))["dpb"]
-            outs.append(dpb["ref_frame"])
+        with self._sized(height, width):
+            for i in range(len(coders)):
+                dpb = self._decode_frame(
+                    None, coders[i:i + 1], mv_z.pop(i), dpb, mv_y_q_scale,
+                    y_q_scale, is_first_p and i == 0, z_idx,
+                    during_stage1=lambda i=i: prefetch(i + 1))["dpb"]
+                outs.append(dpb["ref_frame"])
         return outs, dpb
 
     # ----------------------------------------------------------- encode+decode
@@ -669,7 +757,8 @@ class IntraCodec(_Engine):
         out = self._fleet_call(len(x), "forward", x, q_scale)
         if out is not None:
             return out
-        return self.model(self._frame(x), q_scale)
+        with self._frame_of(x):
+            return self.model(self._frame(x), q_scale)
 
     def _stage1(self, z_hat, q_scale):
         s, carry = self.model.decompress_stage1(self._sym_in(z_hat), q_scale)
@@ -705,8 +794,9 @@ class IntraCodec(_Engine):
     @torch.no_grad()
     def compress(self, x, q_scale) -> bytes:
         self._check_tables()
-        return self._encode_host(
-            _Pull(self._compress_planes(x, q_scale)).wait())
+        with self._frame_of(x):
+            pull = self._pull_planes(self._compress_planes(x, q_scale))
+        return self._encode_host(pull.wait())
 
     @torch.no_grad()
     def compress_batch(self, x, q_scale) -> list:
@@ -717,8 +807,9 @@ class IntraCodec(_Engine):
         out = self._fleet_call(len(x), "compress_batch", x, q_scale)
         if out is not None:
             return out
-        return self._encode_rows(
-            _Pull(self._compress_planes(x, q_scale)).wait())
+        with self._frame_of(x):
+            pull = self._pull_planes(self._compress_planes(x, q_scale))
+        return self._encode_rows(pull.wait())
 
     @torch.no_grad()
     def decompress(self, stream: bytes, height: int, width: int, q_scale):
@@ -737,16 +828,17 @@ class IntraCodec(_Engine):
         coders = _decoders(streams)
         zh, zw = bs.get_downsampled_shape(height, width, 64)
         z_idx = be.build_indexes((1, zh, zw, self.model.N))
-        with _pool(len(coders)) as pool:
+
+        with _pool(len(coders)) as pool, self._sized(height, width):
             z_hat = self._read(pool, coders, [z_idx] * len(coders),
                                self.z_table)
             idx0, carry = self._stage1(self._up(z_hat), q_scale)
-            y_q_r_0 = self._read(pool, coders, _rows(_fetch(idx0)),
+            y_q_r_0 = self._read(pool, coders, _rows(self._fetch(idx0)),
                                  self.y_table)
             idx1, carry = self._stage2(self._up(y_q_r_0), carry)
-            y_q_r_1 = self._read(pool, coders, _rows(_fetch(idx1)),
+            y_q_r_1 = self._read(pool, coders, _rows(self._fetch(idx1)),
                                  self.y_table)
-        return self._stage3(self._up(y_q_r_1), carry, q_scale)
+            return self._stage3(self._up(y_q_r_1), carry, q_scale)
 
     def encode_decode(self, x, q_scale, output_path=None, pic_width=None,
                       pic_height=None):

@@ -10,6 +10,12 @@
 // [0, W-1] x [0, H-1] BEFORE the floor, edge-padded taps, and the lerp
 // ((v00(1-wx) + v01 wx)(1-wy) + (v10(1-wx) + v11 wx) wy) in f32.
 //
+// Row window (spatial sharding, parallel/spatial.py): the flow and the
+// output hold Hl rows, rows [row0, row0 + Hl) of a frame whose image
+// holds all H rows. Output row y samples at row0 + y + v, clamped to the
+// image's H - 1, so the window's output is bit for bit those rows of the
+// whole warp. row0 = 0 and Hl = H is the whole warp.
+//
 // What bounds it on H100: bytes. Per output element it does 8 flops on 4
 // neighbour reads; the neighbours of neighbouring pixels overlap and stay in
 // L1/L2, so device memory sees about one read of the source and one write of
@@ -93,20 +99,23 @@ struct Pix {
   bool ok;  // inside the image (else clamped in, loaded, not stored)
 };
 
+// Output (and flow) pixel (x, y) of image n in a window of Hl rows
+// starting at image row row0; the taps index the image's H rows.
 template <typename TF>
 __device__ __forceinline__ Pix coords(const TF* __restrict__ flow, int n,
-                                      int x, int y, int H, int W) {
+                                      int x, int y, int Hl, int H, int W,
+                                      int row0) {
   Pix P;
-  P.ok = x < W && y < H;
+  P.ok = x < W && y < Hl;
   x = min(x, W - 1);
-  y = min(y, H - 1);
+  y = min(y, Hl - 1);
+  P.p = n * Hl * W + y * W + x;
   const int plane = n * H * W;
-  P.p = plane + y * W + x;
   const TF* f = flow + 2 * (long long)P.p;
   const float px =
       fminf(fmaxf(__fadd_rn((float)x, to_f(f[0])), 0.0f), (float)(W - 1));
-  const float py =
-      fminf(fmaxf(__fadd_rn((float)y, to_f(f[1])), 0.0f), (float)(H - 1));
+  const float py = fminf(
+      fmaxf(__fadd_rn((float)(row0 + y), to_f(f[1])), 0.0f), (float)(H - 1));
   const float fx0 = floorf(px);
   const float fy0 = floorf(py);
   const int x0 = (int)fx0;
@@ -169,7 +178,8 @@ struct Tile {
 
 template <typename T, typename TF, int G>
 __global__ void __launch_bounds__(kThreads)
-    warp_kernel(WarpList L, const TF* __restrict__ flow, int H, int W) {
+    warp_kernel(WarpList L, const TF* __restrict__ flow, int Hl, int H,
+                int W, int row0) {
   constexpr int kGroups = Tile<G>::kGroups;
   constexpr int kTile = 32 * Tile<G>::kRows;
   const int lane = threadIdx.x % G;
@@ -179,7 +189,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int u = 0; u < kBatch; ++u) {
       const int i = i0 + u * kGroups;
       P[u] = coords(flow, blockIdx.z, blockIdx.x * 32 + i % 32,
-                    blockIdx.y * Tile<G>::kRows + i / 32, H, W);
+                    blockIdx.y * Tile<G>::kRows + i / 32, Hl, H, W, row0);
     }
     // unrolled, so that the parameter block is indexed by constants (a
     // runtime index copies it to local memory)
@@ -203,7 +213,8 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, typename TF, int NC>
 __global__ void __launch_bounds__(kThreads)
     warp_narrow_kernel(const T* __restrict__ src, T* __restrict__ dst,
-                       const TF* __restrict__ flow, int H, int W) {
+                       const TF* __restrict__ flow, int Hl, int H, int W,
+                       int row0) {
   constexpr int kTX = 32;
   constexpr int kTY = kThreads * kBatch / kTX;
   Pix P[kBatch];
@@ -211,7 +222,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int u = 0; u < kBatch; ++u) {
     const int i = threadIdx.x + u * kThreads;
     P[u] = coords(flow, blockIdx.z, blockIdx.x * kTX + i % kTX,
-                  blockIdx.y * kTY + i / kTX, H, W);
+                  blockIdx.y * kTY + i / kTX, Hl, H, W, row0);
   }
   T t[kBatch][4][NC];
 #pragma unroll
@@ -234,68 +245,77 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The rows of the window: image height H, Hl output rows from row0.
+struct Rows {
+  int H, Hl, row0;
+};
+
 template <typename T, typename TF, int G>
-void launch_g(const WarpList& L, const TF* f, int N, int H, int W,
+void launch_g(const WarpList& L, const TF* f, int N, Rows R, int W,
               cudaStream_t s) {
   constexpr int kRows = Tile<G>::kRows;
   const dim3 grid((unsigned)((W + 31) / 32),
-                  (unsigned)((H + kRows - 1) / kRows), (unsigned)N);
-  warp_kernel<T, TF, G><<<grid, kThreads, 0, s>>>(L, f, H, W);
+                  (unsigned)((R.Hl + kRows - 1) / kRows), (unsigned)N);
+  warp_kernel<T, TF, G><<<grid, kThreads, 0, s>>>(L, f, R.Hl, R.H, W,
+                                                  R.row0);
 }
 
 template <typename T, typename TF, int NC>
-void launch_narrow(const WarpList& L, const TF* f, int N, int H, int W,
+void launch_narrow(const WarpList& L, const TF* f, int N, Rows R, int W,
                    cudaStream_t s) {
   constexpr int kTY = kThreads * kBatch / 32;
-  const dim3 grid((unsigned)((W + 31) / 32), (unsigned)((H + kTY - 1) / kTY),
-                  (unsigned)N);
+  const dim3 grid((unsigned)((W + 31) / 32),
+                  (unsigned)((R.Hl + kTY - 1) / kTY), (unsigned)N);
   warp_narrow_kernel<T, TF, NC><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(L.src[0]), static_cast<T*>(L.dst[0]), f, H, W);
+      static_cast<const T*>(L.src[0]), static_cast<T*>(L.dst[0]), f, R.Hl,
+      R.H, W, R.row0);
 }
 
 template <typename T, typename TF>
-cudaError_t launch(const WarpList& L, const void* flow, int N, int H, int W,
+cudaError_t launch(const WarpList& L, const void* flow, int N, Rows R, int W,
                    int g, cudaStream_t s) {
   const TF* f = static_cast<const TF*>(flow);
   if (g == 0) {  // one narrow tensor
     switch (L.c[0]) {
-      case 1: launch_narrow<T, TF, 1>(L, f, N, H, W, s); break;
-      case 2: launch_narrow<T, TF, 2>(L, f, N, H, W, s); break;
-      case 3: launch_narrow<T, TF, 3>(L, f, N, H, W, s); break;
-      case 4: launch_narrow<T, TF, 4>(L, f, N, H, W, s); break;
-      case 5: launch_narrow<T, TF, 5>(L, f, N, H, W, s); break;
-      case 6: launch_narrow<T, TF, 6>(L, f, N, H, W, s); break;
-      case 7: launch_narrow<T, TF, 7>(L, f, N, H, W, s); break;
-      default: launch_narrow<T, TF, 8>(L, f, N, H, W, s);
+      case 1: launch_narrow<T, TF, 1>(L, f, N, R, W, s); break;
+      case 2: launch_narrow<T, TF, 2>(L, f, N, R, W, s); break;
+      case 3: launch_narrow<T, TF, 3>(L, f, N, R, W, s); break;
+      case 4: launch_narrow<T, TF, 4>(L, f, N, R, W, s); break;
+      case 5: launch_narrow<T, TF, 5>(L, f, N, R, W, s); break;
+      case 6: launch_narrow<T, TF, 6>(L, f, N, R, W, s); break;
+      case 7: launch_narrow<T, TF, 7>(L, f, N, R, W, s); break;
+      default: launch_narrow<T, TF, 8>(L, f, N, R, W, s);
     }
     return cudaGetLastError();
   }
   switch (g) {
-    case 1: launch_g<T, TF, 1>(L, f, N, H, W, s); break;
-    case 2: launch_g<T, TF, 2>(L, f, N, H, W, s); break;
-    case 4: launch_g<T, TF, 4>(L, f, N, H, W, s); break;
-    case 8: launch_g<T, TF, 8>(L, f, N, H, W, s); break;
-    case 16: launch_g<T, TF, 16>(L, f, N, H, W, s); break;
-    default: launch_g<T, TF, 32>(L, f, N, H, W, s);
+    case 1: launch_g<T, TF, 1>(L, f, N, R, W, s); break;
+    case 2: launch_g<T, TF, 2>(L, f, N, R, W, s); break;
+    case 4: launch_g<T, TF, 4>(L, f, N, R, W, s); break;
+    case 8: launch_g<T, TF, 8>(L, f, N, R, W, s); break;
+    case 16: launch_g<T, TF, 16>(L, f, N, R, W, s); break;
+    default: launch_g<T, TF, 32>(L, f, N, R, W, s);
   }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// src/dst: n_tensors NHWC tensors of shape (N, H, W, c[j]), one dtype;
-// flow: (N, H, W, 2), x then y. dtype / flow_dtype: 0 float32, 1 bfloat16.
-// Returns the cudaError_t of the launch.
+// src: n_tensors NHWC tensors of shape (N, H, W, c[j]), one dtype; flow
+// and dst: (N, Hl, W, 2), x then y, and (N, Hl, W, c[j]): rows [row0,
+// row0 + Hl) of the warp (row0 = 0, Hl = H: the whole warp). dtype /
+// flow_dtype: 0 float32, 1 bfloat16. Returns the cudaError_t of the launch.
 extern "C" int vcm_warp(const void* const* src, void* const* dst,
                         const int* c, int n_tensors, const void* flow, int N,
-                        int H, int W, int dtype, int flow_dtype,
-                        void* stream) {
+                        int H, int W, int Hl, int row0, int dtype,
+                        int flow_dtype, void* stream) {
   if (n_tensors < 1 || n_tensors > kMaxTensors || (dtype != 0 && dtype != 1) ||
-      (flow_dtype != 0 && flow_dtype != 1) || N > 65535 ||
-      (long long)N * H * W >= (1LL << 31)) {
+      (flow_dtype != 0 && flow_dtype != 1) || N > 65535 || Hl < 0 ||
+      row0 < 0 || row0 + Hl > H || (long long)N * H * W >= (1LL << 31)) {
     return (int)cudaErrorInvalidValue;
   }
-  if ((long long)N * H * W == 0) return 0;
+  if ((long long)N * Hl * W == 0) return 0;
+  const Rows R = {H, Hl, row0};
   WarpList L = {};
   const int esize = dtype == 0 ? 4 : 2;
   const int vmax = 16 / esize;  // elements in 16 bytes
@@ -319,12 +339,12 @@ extern "C" int vcm_warp(const void* const* src, void* const* dst,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0) {
-    e = flow_dtype == 0 ? launch<float, float>(L, flow, N, H, W, g, s)
-                        : launch<float, __nv_bfloat16>(L, flow, N, H, W, g, s);
+    e = flow_dtype == 0 ? launch<float, float>(L, flow, N, R, W, g, s)
+                        : launch<float, __nv_bfloat16>(L, flow, N, R, W, g, s);
   } else {
     e = flow_dtype == 0
-            ? launch<__nv_bfloat16, float>(L, flow, N, H, W, g, s)
-            : launch<__nv_bfloat16, __nv_bfloat16>(L, flow, N, H, W, g, s);
+            ? launch<__nv_bfloat16, float>(L, flow, N, R, W, g, s)
+            : launch<__nv_bfloat16, __nv_bfloat16>(L, flow, N, R, W, g, s);
   }
   return (int)e;
 }

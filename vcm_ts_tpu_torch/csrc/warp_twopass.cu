@@ -21,6 +21,12 @@
 // data) leaves the result equal to v(xa) or lo, as the TPU kernel's zero
 // padding does.
 //
+// Row window (spatial sharding, parallel/spatial.py), as kernel A's: the
+// flow and the output hold Hl rows, rows [row0, row0 + Hl) of a frame
+// whose image holds all H rows; y above is the image row row0 + (the
+// window's row), and the window's output is bit for bit those rows of the
+// whole warp. row0 = 0 and Hl = H is the whole warp.
+//
 // What bounds it on H100: bytes. Per output element it does 9 flops on 4
 // neighbour reads, and the neighbours of neighbouring pixels overlap in
 // L1/L2, so device memory sees about one read of the source, one read of
@@ -101,29 +107,31 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
     warp_twopass_kernel(const T* __restrict__ src, T* __restrict__ dst,
                         const float* __restrict__ flow, int c, int vec,
-                        int H, int W, int D, long long npix) {
+                        int Hl, int H, int W, int row0, int D,
+                        long long npix) {
   __shared__ int s_q[kPix][4];
   __shared__ float s_w[kPix][3];
   const long long p0 = (long long)blockIdx.x * kPix;
   const int t = threadIdx.x;
   if (t < kPix && p0 + t < npix) {
-    const long long p = p0 + t;
-    const long long hw = (long long)H * W;
+    const long long p = p0 + t;  // output and flow pixel
+    const long long hw = (long long)Hl * W;
     const long long n = p / hw;
     const int rem = (int)(p - n * hw);
-    const int y = rem / W;
-    const int x = rem - y * W;
+    const int yl = rem / W;
+    const int x = rem - yl * W;
+    const int y = row0 + yl;  // the image row
     const float fd = (float)D;
     const float px =
         clampf(__fadd_rn((float)x, flow[2 * p]), 0.0f, (float)(W - 1));
     const float fx0 = floorf(px);
     const int xa = x + (int)clampf(fx0 - (float)x, -fd, fd);
     const int xb = min(xa + 1, W - 1);
-    const int base = (int)(n * hw);
+    const int base = (int)(n * H * W);
     const int cols[2] = {xa, xb};
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      const long long pc = n * hw + (long long)y * W + cols[j];
+      const long long pc = n * hw + (long long)yl * W + cols[j];
       const float py = clampf(__fadd_rn((float)y, flow[2 * pc + 1]), 0.0f,
                               (float)(H - 1));
       const float fy0 = floorf(py);
@@ -153,17 +161,19 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// src/dst: NHWC tensors of shape (N, H, W, C), one dtype (0: float32,
-// 1: bfloat16); flow: float32 (N, H, W, 2), x then y; D >= 0 the
-// displacement bound. Returns the cudaError_t of the launch.
+// src: NHWC (N, H, W, C), one dtype with dst (0: float32, 1: bfloat16);
+// flow: float32 (N, Hl, W, 2), x then y, and dst (N, Hl, W, C): rows
+// [row0, row0 + Hl) of the warp (row0 = 0, Hl = H: the whole warp); D >= 0
+// the displacement bound. Returns the cudaError_t of the launch.
 extern "C" int vcm_warp_twopass(const void* src, void* dst, int C,
-                                const float* flow, int N, int H, int W, int D,
-                                int dtype, void* stream) {
-  if ((dtype != 0 && dtype != 1) || C < 1 || D < 0 ||
-      (long long)N * H * W >= (1LL << 31)) {
+                                const float* flow, int N, int H, int W,
+                                int Hl, int row0, int D, int dtype,
+                                void* stream) {
+  if ((dtype != 0 && dtype != 1) || C < 1 || D < 0 || Hl < 0 || row0 < 0 ||
+      row0 + Hl > H || (long long)N * H * W >= (1LL << 31)) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long npix = (long long)N * H * W;
+  const long long npix = (long long)N * Hl * W;
   if (npix == 0) return 0;
   const int vmax = dtype == 0 ? 4 : 8;  // elements in 16 bytes
   const bool aligned =
@@ -174,11 +184,12 @@ extern "C" int vcm_warp_twopass(const void* src, void* dst, int C,
   if (dtype == 0) {
     warp_twopass_kernel<float><<<blocks, kThreads, 0, s>>>(
         static_cast<const float*>(src), static_cast<float*>(dst), flow, C, vec,
-        H, W, D, npix);
+        Hl, H, W, row0, D, npix);
   } else {
     warp_twopass_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(src),
-        static_cast<__nv_bfloat16*>(dst), flow, C, vec, H, W, D, npix);
+        static_cast<__nv_bfloat16*>(dst), flow, C, vec, Hl, H, W, row0, D,
+        npix);
   }
   return (int)cudaGetLastError();
 }

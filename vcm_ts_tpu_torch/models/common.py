@@ -27,10 +27,13 @@ def quant(x, training: bool = False):
     return quant_ste(x) if training else quant_round(x)
 
 
-def checkerboard_masks(h: int, w: int, dtype=torch.float32, device="cpu"):
+def checkerboard_masks(h: int, w: int, dtype=torch.float32, device="cpu",
+                       row0: int = 0):
     """mask_0 is 1 where (y + x) is even, mask_1 its complement; both
-    (1, H, W, 1) for NHWC broadcast."""
-    ys = torch.arange(h, device=device)[:, None]
+    (1, H, W, 1) for NHWC broadcast. `row0`: the global row of the first
+    row (a plane split by rows, parallel/spatial.py): the parity is the
+    global row's."""
+    ys = torch.arange(row0, row0 + h, device=device)[:, None]
     xs = torch.arange(w, device=device)[None, :]
     mask0 = ((ys + xs) % 2 == 0).to(dtype)[None, :, :, None]
     return mask0, 1.0 - mask0
@@ -53,18 +56,36 @@ class DualPriorForward(NamedTuple):
     scales_hat: torch.Tensor
 
 
-def _masks_like(t):
-    _, h, w, _ = t.shape
-    return checkerboard_masks(h, w, t.dtype, t.device)
+def plane_row0(spatial, t) -> int:
+    """The global row of NHWC plane t's first row: 0 unless `spatial` (a
+    SpatialAxis, or None) splits it."""
+    return 0 if spatial is None else spatial.row0(t, 1)
 
+
+def plane_sum(spatial, t, nchw: bool = False):
+    """Per row of N, the sum of a plane (NHWC, or NCHW with `nchw`) over
+    the whole frame: over the ranks' rows too when `spatial` splits it."""
+    if spatial is None:
+        return torch.sum(t, dim=(1, 2, 3))
+    return spatial.sum_plane(t.permute(0, 2, 3, 1) if nchw else t)
+
+
+def _masks_like(t, row0: int = 0):
+    _, h, w, _ = t.shape
+    return checkerboard_masks(h, w, t.dtype, t.device, row0)
+
+
+# Each function below takes `row0`, the global row of its planes' first
+# row, for the masks of a plane split by rows (plane_row0).
 
 def forward_dual_prior(y, means, scales, quant_step,
                        spatial_prior: Callable, *,
-                       training: bool = False) -> DualPriorForward:
+                       training: bool = False,
+                       row0: int = 0) -> DualPriorForward:
     """Two-step dual-prior coding. `spatial_prior` maps the step-0 context
     (y_hat_0_0 | y_hat_1_1 | means | scales | quant_step), NHWC, to the
     4-way split (scales_0, means_0, scales_1, means_1) for step 1."""
-    mask0, mask1 = _masks_like(y)
+    mask0, mask1 = _masks_like(y, row0)
     quant_step = lower_bound(quant_step, 0.5)
     y = y / quant_step
     y_0, y_1 = torch.chunk(y, 2, dim=-1)
@@ -100,10 +121,10 @@ def forward_dual_prior(y, means, scales, quant_step,
 # Encoder-side symbol quantization against the DECODER's prior buffers.
 # ---------------------------------------------------------------------------
 
-def encode_symbols_step0(y, means, quant_step):
+def encode_symbols_step0(y, means, quant_step, row0: int = 0):
     """Checkerboard step-0 symbols of latent `y` given stage-A buffers
     (means full width, quant_step already lower-bounded)."""
-    mask0, mask1 = _masks_like(y)
+    mask0, mask1 = _masks_like(y, row0)
     y = y / quant_step
     y_0, y_1 = torch.chunk(y, 2, dim=-1)
     means_0, means_1 = torch.chunk(means, 2, dim=-1)
@@ -112,10 +133,10 @@ def encode_symbols_step0(y, means, quant_step):
     return q00 + q11
 
 
-def encode_symbols_step1(y, means_0, means_1, quant_step):
+def encode_symbols_step1(y, means_0, means_1, quant_step, row0: int = 0):
     """Checkerboard step-1 symbols given stage-B buffers (the means halves
     from the spatial prior)."""
-    mask0, mask1 = _masks_like(y)
+    mask0, mask1 = _masks_like(y, row0)
     y = y / quant_step
     y_0, y_1 = torch.chunk(y, 2, dim=-1)
     q01 = quant_round((y_0 - means_0 * mask1) * mask1)
@@ -129,16 +150,16 @@ def encode_symbols_step1(y, means_0, means_1, quant_step):
 # emits step-1 scales; stage C consumes step-1 symbols and reassembles y_hat.
 # ---------------------------------------------------------------------------
 
-def decompress_stage_a(scales, quant_step):
-    mask0, mask1 = _masks_like(scales)
+def decompress_stage_a(scales, quant_step, row0: int = 0):
+    mask0, mask1 = _masks_like(scales, row0)
     quant_step = torch.clamp_min(quant_step, 0.5)
     scales_0, scales_1 = torch.chunk(scales, 2, dim=-1)
     return scales_0 * mask0 + scales_1 * mask1, quant_step
 
 
 def decompress_stage_b(y_q_r_0, means, scales, quant_step,
-                       spatial_prior: Callable):
-    mask0, mask1 = _masks_like(means)
+                       spatial_prior: Callable, row0: int = 0):
+    mask0, mask1 = _masks_like(means, row0)
     means_0, means_1 = torch.chunk(means, 2, dim=-1)
     y_hat_0_0 = (y_q_r_0 + means_0) * mask0
     y_hat_1_1 = (y_q_r_0 + means_1) * mask1
@@ -150,9 +171,9 @@ def decompress_stage_b(y_q_r_0, means, scales, quant_step,
     return scales_r_1, (y_hat_0_0, y_hat_1_1, means_0, means_1)
 
 
-def decompress_stage_c(y_q_r_1, carry, quant_step):
+def decompress_stage_c(y_q_r_1, carry, quant_step, row0: int = 0):
     y_hat_0_0, y_hat_1_1, means_0, means_1 = carry
-    mask0, mask1 = _masks_like(means_0)
+    mask0, mask1 = _masks_like(means_0, row0)
     y_hat_0_1 = (y_q_r_1 + means_0) * mask1
     y_hat_1_0 = (y_q_r_1 + means_1) * mask0
     y_hat = torch.cat((y_hat_0_0 + y_hat_0_1, y_hat_1_1 + y_hat_1_0), dim=-1)

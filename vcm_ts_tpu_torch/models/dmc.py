@@ -74,7 +74,15 @@ def _q(q, like: torch.Tensor) -> torch.Tensor:
 class DMC(nn.Module):
     """`fast_warp` routes every warp of SpyNet and of motion compensation
     through the two-pass warp (kernel D, ops/warp_twopass.py) in place of
-    the exact warp: opt-in, as in the JAX package."""
+    the exact warp: opt-in, as in the JAX package.
+
+    `spatial`: the SpatialAxis of a model split by rows
+    (parallel/spatial.shard_spatial_model), else None. Split, every method
+    takes and returns this rank's rows of each plane that tiles the axis
+    (whole planes otherwise), inside SpatialAxis.frame; the bits, bpp and
+    mse cover the whole frame. Inference only."""
+
+    spatial = None
 
     def __init__(self, anchor_num: int = 4, channel_mv: int = 64,
                  channel_N: int = 64, channel_M: int = 96,
@@ -139,10 +147,25 @@ class DMC(nn.Module):
         return lower_bound(b, 0.5) * _q(q_scale, b)
 
     def _warp(self, im, flow, scale: int):
+        sp = self.spatial
         if self.fast_warp:
             # the displacement bound shrinks with the pyramid scale
-            return flow_warp_twopass(im, flow, max(6, 24 >> scale))
-        return flow_warp(im, flow)
+            d = max(6, 24 >> scale)
+            if sp is None:
+                return flow_warp_twopass(im, flow, d)
+            return sp.warp_twopass(im, flow, d)
+        return flow_warp(im, flow) if sp is None else sp.warp([im], flow)[0]
+
+    def _down2(self, x):
+        sp = self.spatial
+        return (bilinear_down2(x) if sp is None
+                else sp.resize(bilinear_down2, x))
+
+    def _row0(self, t) -> int:
+        return common.plane_row0(self.spatial, t)
+
+    def _plane_sum(self, t, nchw: bool = False):
+        return common.plane_sum(self.spatial, t, nchw)
 
     def _spatial(self, net):
         return lambda p: to_nhwc(net(to_nchw(p)))
@@ -159,16 +182,18 @@ class DMC(nn.Module):
         reference frame and the full-res feature share one flow, so they go
         through one packed warp."""
         mv = mv.contiguous(memory_format=CL)
-        mv2 = (bilinear_down2(mv) / 2).contiguous(memory_format=CL)
-        mv3 = (bilinear_down2(mv2) / 2).contiguous(memory_format=CL)
+        mv2 = (self._down2(mv) / 2).contiguous(memory_format=CL)
+        mv3 = (self._down2(mv2) / 2).contiguous(memory_format=CL)
         f1, f2, f3 = (f.contiguous(memory_format=CL) for f in
                       self.multi_scale_feature_extractor(dpb, is_first_p))
         ref = to_nchw(dpb["ref_frame"])
         if self.fast_warp:
             warpframe = self._warp(ref, mv, 0)
             context1 = self._warp(f1, mv, 0)
-        else:
+        elif self.spatial is None:
             warpframe, context1 = flow_warp_packed((ref, f1), mv)
+        else:
+            warpframe, context1 = self.spatial.warp((ref, f1), mv)
         context2 = self._warp(f2, mv2, 1)
         context3 = self._warp(f3, mv3, 2)
         context1, context2, context3 = self.context_fusion_net(
@@ -211,6 +236,9 @@ class DMC(nn.Module):
         and mv_z (noise_shapes; the order of the JAX package's key split),
         and the bits are then those of the noisy values, else of the
         rounded ones."""
+        if training and self.spatial is not None:
+            raise NotImplementedError("a model split by rows runs inference "
+                                      "only")
         curr_mv_y_q = self.get_curr_mv_y_q(mv_y_q_scale)
         curr_y_q = self.get_curr_y_q(y_q_scale)
         xc = to_nchw(x)
@@ -223,7 +251,8 @@ class DMC(nn.Module):
             mv_z_hat, dpb["ref_mv_y"])
         mv_res = common.forward_dual_prior(
             mv_y, mv_means, mv_scales, mv_q_step,
-            self._spatial(self.mv_y_spatial_prior), training=training)
+            self._spatial(self.mv_y_spatial_prior), training=training,
+            row0=self._row0(mv_y))
         mv_y_hat = mv_res.y_hat * to_nhwc(curr_mv_y_q)
 
         mv_hat = self.mv_decoder(to_nchw(mv_y_hat))
@@ -237,7 +266,7 @@ class DMC(nn.Module):
         q_step, scales, means = self._y_prior(z_hat, context3, dpb["ref_y"])
         y_res = common.forward_dual_prior(
             y, means, scales, q_step, self._spatial(self.y_spatial_prior),
-            training=training)
+            training=training, row0=self._row0(y))
         y_hat = y_res.y_hat * to_nhwc(curr_y_q)
 
         recon_feat = self.contextual_decoder(to_nchw(y_hat), context2,
@@ -246,10 +275,11 @@ class DMC(nn.Module):
         recon_image = to_nhwc(recon_image)
 
         _, h, w, _ = x.shape
+        if self.spatial is not None:
+            h, w = self.spatial.frame_hw()
         pixel_num = h * w
-        mse = torch.sum((x - recon_image) ** 2, dim=(1, 2, 3)) / pixel_num
-        me_mse = torch.sum((x - to_nhwc(warp_frame)) ** 2,
-                           dim=(1, 2, 3)) / pixel_num
+        mse = self._plane_sum((x - recon_image) ** 2) / pixel_num
+        me_mse = self._plane_sum((x - to_nhwc(warp_frame)) ** 2) / pixel_num
 
         if training and noise is not None:
             n_y, n_mv_y, n_z, n_mv_z = noise
@@ -266,10 +296,10 @@ class DMC(nn.Module):
         bits_z = self._z_bits(z_for_bit, self.bit_estimator_z)
         bits_mv_z = self._z_bits(mv_z_for_bit, self.bit_estimator_z_mv)
 
-        bpp_y = torch.sum(bits_y, dim=(1, 2, 3)) / pixel_num
-        bpp_z = torch.sum(bits_z, dim=(1, 2, 3)) / pixel_num
-        bpp_mv_y = torch.sum(bits_mv_y, dim=(1, 2, 3)) / pixel_num
-        bpp_mv_z = torch.sum(bits_mv_z, dim=(1, 2, 3)) / pixel_num
+        bpp_y = self._plane_sum(bits_y) / pixel_num
+        bpp_z = self._plane_sum(bits_z, nchw=True) / pixel_num
+        bpp_mv_y = self._plane_sum(bits_mv_y) / pixel_num
+        bpp_mv_z = self._plane_sum(bits_mv_z, nchw=True) / pixel_num
         bpp = bpp_y + bpp_z + bpp_mv_y + bpp_mv_z
 
         return {
@@ -318,7 +348,8 @@ class DMC(nn.Module):
         """mv hyper decode -> step-0 mv coding scales."""
         mv_q_step, mv_scales, mv_means = self._mv_prior(
             mv_z_hat, dpb["ref_mv_y"])
-        scales_r_0, mv_q_step = common.decompress_stage_a(mv_scales, mv_q_step)
+        scales_r_0, mv_q_step = common.decompress_stage_a(
+            mv_scales, mv_q_step, self._row0(mv_scales))
         return scales_r_0, (mv_means, mv_scales, mv_q_step)
 
     def decompress_stage2(self, mv_y_q_r_0, carry):
@@ -326,7 +357,7 @@ class DMC(nn.Module):
         mv_means, mv_scales, mv_q_step = carry
         scales_r_1, carry2 = common.decompress_stage_b(
             mv_y_q_r_0, mv_means, mv_scales, mv_q_step,
-            self._spatial(self.mv_y_spatial_prior))
+            self._spatial(self.mv_y_spatial_prior), self._row0(mv_means))
         return scales_r_1, carry2 + (mv_q_step,)
 
     def decompress_stage3a(self, mv_y_q_r_1, carry, dpb, mv_y_q_scale,
@@ -335,7 +366,8 @@ class DMC(nn.Module):
         reuses it for the contexts its y latent is computed against."""
         y_hat_0_0, y_hat_1_1, means_0, means_1, mv_q_step = carry
         mv_y_hat = common.decompress_stage_c(
-            mv_y_q_r_1, (y_hat_0_0, y_hat_1_1, means_0, means_1), mv_q_step)
+            mv_y_q_r_1, (y_hat_0_0, y_hat_1_1, means_0, means_1), mv_q_step,
+            self._row0(means_0))
         mv_y_hat = mv_y_hat * to_nhwc(self.get_curr_mv_y_q(mv_y_q_scale))
         mv_hat = self.mv_decoder(to_nchw(mv_y_hat))
         context1, context2, context3, _ = self.motion_compensation(
@@ -347,7 +379,8 @@ class DMC(nn.Module):
         """z (static channel indexes) -> step-0 y coding scales."""
         q_step, scales, means = self._y_prior(z_hat, to_nchw(context3),
                                               dpb["ref_y"])
-        scales_r_0, q_step = common.decompress_stage_a(scales, q_step)
+        scales_r_0, q_step = common.decompress_stage_a(scales, q_step,
+                                                       self._row0(scales))
         return scales_r_0, (means, scales, q_step)
 
     def decompress_stage5(self, y_q_r_0, carry):
@@ -355,7 +388,7 @@ class DMC(nn.Module):
         means, scales, q_step = carry
         scales_r_1, carry2 = common.decompress_stage_b(
             y_q_r_0, means, scales, q_step,
-            self._spatial(self.y_spatial_prior))
+            self._spatial(self.y_spatial_prior), self._row0(means))
         return scales_r_1, carry2 + (q_step,)
 
     def decompress_stage6(self, y_q_r_1, carry, contexts, y_q_scale):
@@ -363,7 +396,8 @@ class DMC(nn.Module):
         y_hat_0_0, y_hat_1_1, means_0, means_1, q_step = carry
         context1, context2, context3, mv_y_hat = contexts
         y_hat = common.decompress_stage_c(
-            y_q_r_1, (y_hat_0_0, y_hat_1_1, means_0, means_1), q_step)
+            y_q_r_1, (y_hat_0_0, y_hat_1_1, means_0, means_1), q_step,
+            self._row0(means_0))
         y_hat = y_hat * to_nhwc(self.get_curr_y_q(y_q_scale))
         recon_feat = self.contextual_decoder(
             to_nchw(y_hat), to_nchw(context2), to_nchw(context3))

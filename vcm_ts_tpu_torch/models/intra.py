@@ -22,6 +22,10 @@ from .dmc import _prior_stack, _q
 
 
 class IntraNoAR(nn.Module):
+    """`spatial`: as DMC's (models/dmc.py)."""
+
+    spatial = None
+
     def __init__(self, N: int = 192, anchor_num: int = 4, device="cuda"):
         super().__init__()
         self.N, self.anchor_num = N, anchor_num
@@ -49,6 +53,12 @@ class IntraNoAR(nn.Module):
     def _spatial_prior(self, p):
         return to_nhwc(self.y_spatial_prior(to_nchw(p)))
 
+    def _row0(self, t) -> int:
+        return common.plane_row0(self.spatial, t)
+
+    def _plane_sum(self, t, nchw: bool = False):
+        return common.plane_sum(self.spatial, t, nchw)
+
     def _z_bits(self, z):
         zc = to_nchw(z)
         return probs_to_bits(self.bit_estimator_z(zc + 0.5)
@@ -64,17 +74,20 @@ class IntraNoAR(nn.Module):
 
         q_step, scales, means = self._fusion_params(z_hat)
         res = common.forward_dual_prior(y, means, scales, q_step,
-                                        self._spatial_prior)
+                                        self._spatial_prior,
+                                        row0=self._row0(y))
         y_hat = res.y_hat * to_nhwc(curr_q)
         x_hat = to_nhwc(self.refine(self.dec(to_nchw(y_hat))))
 
         bits_y = gaussian_bits(res.y_q, res.scales_hat)
         bits_z = self._z_bits(z_hat)
         _, h, w, _ = x.shape
+        if self.spatial is not None:
+            h, w = self.spatial.frame_hw()
         pixel_num = h * w
-        bpp_y = torch.sum(bits_y, dim=(1, 2, 3)) / pixel_num
-        bpp_z = torch.sum(bits_z, dim=(1, 2, 3)) / pixel_num
-        mse = torch.sum((x - x_hat) ** 2, dim=(1, 2, 3)) / pixel_num
+        bpp_y = self._plane_sum(bits_y) / pixel_num
+        bpp_z = self._plane_sum(bits_z, nchw=True) / pixel_num
+        mse = self._plane_sum((x - x_hat) ** 2) / pixel_num
         return {
             "x_hat": x_hat,
             "mse": mse,
@@ -96,19 +109,22 @@ class IntraNoAR(nn.Module):
     def decompress_stage1(self, z_hat, q_scale):
         """hyper decode + prior fusion -> step-0 coding scales."""
         q_step, scales, means = self._fusion_params(z_hat)
-        scales_r_0, q_step = common.decompress_stage_a(scales, q_step)
+        scales_r_0, q_step = common.decompress_stage_a(scales, q_step,
+                                                       self._row0(scales))
         return scales_r_0, (means, scales, q_step)
 
     def decompress_stage2(self, y_q_r_0, carry):
         means, scales, q_step = carry
         scales_r_1, carry2 = common.decompress_stage_b(
-            y_q_r_0, means, scales, q_step, self._spatial_prior)
+            y_q_r_0, means, scales, q_step, self._spatial_prior,
+            self._row0(means))
         return scales_r_1, carry2 + (q_step,)
 
     def decompress_stage3(self, y_q_r_1, carry, q_scale):
         y_hat_0_0, y_hat_1_1, means_0, means_1, q_step = carry
         y_hat = common.decompress_stage_c(
-            y_q_r_1, (y_hat_0_0, y_hat_1_1, means_0, means_1), q_step)
+            y_q_r_1, (y_hat_0_0, y_hat_1_1, means_0, means_1), q_step,
+            self._row0(means_0))
         y_hat = y_hat * to_nhwc(self.get_curr_q(q_scale))
         x_hat = self.refine(self.dec(to_nchw(y_hat)))
         return torch.clamp(to_nhwc(x_hat), 0.0, 1.0)

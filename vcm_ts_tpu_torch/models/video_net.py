@@ -19,7 +19,10 @@ CL = torch.channels_last
 
 class MESpynet(nn.Module):
     """Coarse-to-fine 4-level SpyNet; `fast_warp` warps with the two-pass
-    warp (kernel D) in place of the exact warp."""
+    warp (kernel D) in place of the exact warp. `spatial`: the SpatialAxis
+    of a model split by rows (parallel/spatial.py), else None."""
+
+    spatial = None
 
     def __init__(self, levels: int = 4, fast_warp: bool = False):
         super().__init__()
@@ -27,23 +30,40 @@ class MESpynet(nn.Module):
         self.moduleBasic = nn.ModuleList(MEBasic() for _ in range(levels))
 
     def _warp(self, im, flow, level: int):
+        sp = self.spatial
         if self.fast_warp:
             # the displacement bound shrinks with the pyramid level
-            return flow_warp_twopass(im, flow, max(4, 16 >> level))
-        return flow_warp(im, flow)
+            d = max(4, 16 >> level)
+            if sp is None:
+                return flow_warp_twopass(im, flow, d)
+            return sp.warp_twopass(im, flow, d)
+        return flow_warp(im, flow) if sp is None else sp.warp([im], flow)[0]
+
+    def _pool(self, x):
+        sp = self.spatial
+        return avg_pool2(x) if sp is None else sp.pool(avg_pool2, x)
+
+    def _up2(self, x):
+        sp = self.spatial
+        return bilinear_up2(x) if sp is None else sp.resize(bilinear_up2, x)
 
     def forward(self, im1, im2):
         im1_list = [im1]
         im2_list = [im2]
         for _ in range(self.levels - 1):
-            im1_list.append(avg_pool2(im1_list[-1]))
-            im2_list.append(avg_pool2(im2_list[-1]))
+            im1_list.append(self._pool(im1_list[-1]))
+            im2_list.append(self._pool(im2_list[-1]))
 
         n, _, h_c, w_c = im2_list[-1].shape
-        flow = torch.zeros((n, 2, h_c // 2, w_c // 2), dtype=im1.dtype,
+        h_f = h_c // 2
+        if self.spatial is not None:  # this rank's rows of the flow plane
+            sp = self.spatial
+            r0, r1 = sp.span(sp.global_rows(im2_list[-1], 2) // 2)
+            h_f = r1 - r0
+        flow = torch.zeros((n, 2, h_f, w_c // 2), dtype=im1.dtype,
                            device=im1.device).contiguous(memory_format=CL)
         for level in range(self.levels):
-            flow_up = (bilinear_up2(flow) * 2.0).contiguous(memory_format=CL)
+            flow_up = (self._up2(flow) * 2.0).contiguous(memory_format=CL)
             i = self.levels - 1 - level
             warped = self._warp(im2_list[i].contiguous(memory_format=CL),
                                 flow_up, i)

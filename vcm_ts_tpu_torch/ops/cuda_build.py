@@ -36,11 +36,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point and argument types of each source (see the .cu files)
 SIGNATURES = {
     "warp": ("vcm_warp", [ctypes.POINTER(_P), ctypes.POINTER(_P),
-                          ctypes.POINTER(_I), _I, _P] + [_I] * 5 + [_P]),
+                          ctypes.POINTER(_I), _I, _P] + [_I] * 7 + [_P]),
     "subpel_conv1x1": ("vcm_subpel_conv1x1", [_P] * 4 + [_I] * 7 + [_P]),
     "pixel_shuffle": ("vcm_pixel_shuffle_relayout", [_P] * 2 + [_I] * 6
                       + [_P]),
-    "warp_twopass": ("vcm_warp_twopass", [_P, _P, _I, _P] + [_I] * 5 + [_P]),
+    "warp_twopass": ("vcm_warp_twopass", [_P, _P, _I, _P] + [_I] * 7 + [_P]),
     "warp_bwd": ("vcm_warp_bwd", [ctypes.POINTER(_P)] * 3
                  + [ctypes.POINTER(_I), _I, _P, _P] + [_I] * 6 + [_P]),
     "space_to_depth": ("vcm_space_to_depth", [_P] * 2 + [_I] * 6 + [_P]),

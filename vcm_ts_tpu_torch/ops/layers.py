@@ -219,7 +219,10 @@ class ConvBlockResidual(nn.Module):
 
 
 class UNet(nn.Module):
-    """Two-level UNet with SE conv blocks."""
+    """Two-level UNet with SE conv blocks. `spatial`: the SpatialAxis of a
+    model split by rows (parallel/spatial.py), else None."""
+
+    spatial = None
 
     def __init__(self, cin: int, features: int = 64):
         super().__init__()
@@ -233,10 +236,15 @@ class UNet(nn.Module):
         self.up2 = SubpelConv(64, 32, 2, kernel=1)
         self.up_conv2 = ConvBlockResidual(64, features)
 
+    def _pool(self, x):
+        if self.spatial is None:
+            return max_pool2(x)
+        return self.spatial.pool(max_pool2, x)
+
     def forward(self, x):
         x1 = self.conv1(x)
-        x2 = self.conv2(max_pool2(x1))
-        x3 = self.context_refine(self.conv3(max_pool2(x2)))
+        x2 = self.conv2(self._pool(x1))
+        x3 = self.context_refine(self.conv3(self._pool(x2)))
         d3 = self.up_conv3(torch.cat([x2, self.up3(x3)], dim=1))
         d2 = self.up2(d3)
         return self.up_conv2(torch.cat([x1, d2], dim=1))

@@ -9,6 +9,13 @@ Tensors are NCHW with NHWC memory (`torch.channels_last`); the flow is
 (N, 2, H, W), channel 0 horizontal. `flow_warp_packed` warps several
 tensors that share one flow in one launch, without concatenating them.
 
+Row window (spatial sharding, parallel/spatial.py): with `row0`, the flow
+holds Hl rows, rows [row0, row0 + Hl) of a frame whose images hold all its
+H rows, and the output is those Hl rows of the whole warp, bit for bit:
+output row y samples at row0 + y + v, clamped to H - 1. row0 = 0 with
+images as high as the flow is the whole warp. The window has no backward
+(spatial sharding is inference only).
+
 On a CPU tensor the wrappers run the plain version; on a CUDA tensor they
 launch `csrc/warp.cu` (which rounds every op as the plain version does,
 so the two agree bit for bit) or raise. The kernel reads an f32 or bf16
@@ -40,10 +47,12 @@ def nhwc_dense(t: torch.Tensor) -> bool:
     return t.dim() == 4 and t.is_contiguous(memory_format=torch.channels_last)
 
 
-def _clamped_coords(flow):
-    _, _, h, w = flow.shape
+def _clamped_coords(flow, h: int, row0: int):
+    """Per pixel of the flow (rows row0.. of an image of h rows): the
+    clamped tap (x0, y0) and weights."""
+    _, _, hl, w = flow.shape
     f32, dev = torch.float32, flow.device
-    ys = torch.arange(h, dtype=f32, device=dev)[None, :, None]
+    ys = torch.arange(row0, row0 + hl, dtype=f32, device=dev)[None, :, None]
     xs = torch.arange(w, dtype=f32, device=dev)[None, None, :]
     px = torch.clamp(xs + flow[:, 0].float(), 0.0, w - 1.0)
     py = torch.clamp(ys + flow[:, 1].float(), 0.0, h - 1.0)
@@ -52,17 +61,18 @@ def _clamped_coords(flow):
     return x0.long(), y0.long(), px - x0, py - y0
 
 
-def warp_plain(ims, flow):
+def warp_plain(ims, flow, row0: int = 0):
     """Plain PyTorch version: f32 coordinates and four gathers."""
-    n, _, h, w = flow.shape
-    x0, y0, wx, wy = _clamped_coords(flow)
+    n, _, hl, w = flow.shape
+    h = ims[0].shape[2]
+    x0, y0, wx, wy = _clamped_coords(flow, h, row0)
     x1 = torch.clamp(x0 + 1, max=w - 1)
     y1 = torch.clamp(y0 + 1, max=h - 1)
-    taps = [(yy * w + xx).reshape(n, h * w)
+    taps = [(yy * w + xx).reshape(n, hl * w)
             for yy, xx in ((y0, x0), (y0, x1), (y1, x0), (y1, x1))]
     rows = torch.arange(n, device=flow.device)[:, None]
-    wx = wx.reshape(n, h * w, 1)
-    wy = wy.reshape(n, h * w, 1)
+    wx = wx.reshape(n, hl * w, 1)
+    wy = wy.reshape(n, hl * w, 1)
     outs = []
     for im in ims:
         c = im.shape[1]
@@ -70,39 +80,58 @@ def warp_plain(ims, flow):
         v00, v01, v10, v11 = (flat[rows, q].float() for q in taps)
         out = ((v00 * (1.0 - wx) + v01 * wx) * (1.0 - wy)
                + (v10 * (1.0 - wx) + v11 * wx) * wy)
-        outs.append(out.to(im.dtype).reshape(n, h, w, c).permute(0, 3, 1, 2))
+        outs.append(out.to(im.dtype).reshape(n, hl, w, c).permute(0, 3, 1,
+                                                                   2))
     return outs
 
 
-def warp_cuda(ims, flow):
-    """Launch kernel A on CUDA tensors (all NHWC-dense, one dtype)."""
-    n, two, h, w = flow.shape
+def check_window(ims, flow, row0: int) -> int:
+    """The images' height H, after checking that the flow's rows are rows
+    [row0, row0 + Hl) of images of one size (N, *, H, W)."""
+    n, _, hl, w = flow.shape
+    h = ims[0].shape[2]
+    for im in ims:
+        if im.dim() != 4 or im.shape[0] != n or im.shape[2:] != (h, w):
+            raise ValueError(f"warp input {tuple(im.shape)} does not match "
+                             f"the flow {tuple(flow.shape)} and the first "
+                             f"input {tuple(ims[0].shape)}")
+    if row0 < 0 or row0 + hl > h:
+        raise ValueError(f"flow rows [{row0}, {row0 + hl}) are not rows of "
+                         f"images of {h} rows")
+    return h
+
+
+def warp_cuda(ims, flow, row0: int = 0):
+    """Launch kernel A on CUDA tensors (all NHWC-dense, one dtype): rows
+    [row0, row0 + Hl) of the warp, Hl the flow's rows."""
+    n, two, hl, w = flow.shape
     if two != 2 or not nhwc_dense(flow):
         raise ValueError("flow must be (N, 2, H, W) with NHWC memory")
     if not 1 <= len(ims) <= MAX_TENSORS:
         raise ValueError(f"warp takes 1..{MAX_TENSORS} tensors, got "
                          f"{len(ims)}")
+    h = check_window(ims, flow, row0)
     dtype = ims[0].dtype
     for im in ims:
         if im.device != flow.device or im.dtype != dtype:
             raise ValueError("warp tensors must share the flow's device and "
                              "one dtype")
-        if im.shape[0] != n or im.shape[2:] != (h, w) or not nhwc_dense(im):
+        if not nhwc_dense(im):
             raise ValueError(f"warp input {tuple(im.shape)} / strides "
-                             f"{im.stride()} is not NHWC-dense at the flow's "
-                             "size")
+                             f"{im.stride()} is not NHWC-dense")
     code = cuda_build.dtype_code(ims[0])
     # the kernel reads an f32 or bf16 flow and widens it in registers
     if flow.dtype not in (torch.float32, torch.bfloat16):
         flow = flow.float()
-    outs = [torch.empty_like(im, memory_format=torch.channels_last)
+    outs = [torch.empty((n, im.shape[1], hl, w), dtype=dtype,
+                        device=im.device, memory_format=torch.channels_last)
             for im in ims]
     k = len(ims)
     src = (ctypes.c_void_p * k)(*[im.data_ptr() for im in ims])
     dst = (ctypes.c_void_p * k)(*[o.data_ptr() for o in outs])
     chans = (ctypes.c_int * k)(*[im.shape[1] for im in ims])
     rc = cuda_build.launcher("warp")(src, dst, chans, k, flow.data_ptr(),
-                                     n, h, w, code,
+                                     n, h, w, hl, row0, code,
                                      cuda_build.dtype_code(flow),
                                      cuda_build.stream_ptr(flow))
     cuda_build.check(rc, "warp")
@@ -223,11 +252,12 @@ def warp_backward_cuda(ims, flow, grads, need_im: bool = True):
     return dflow, dims
 
 
-def _forward(ims, flow):
+def _forward(ims, flow, row0: int = 0):
     if flow.device.type == "cpu":
-        return warp_plain(ims, flow)
+        check_window(ims, flow, row0)
+        return warp_plain(ims, flow, row0)
     if flow.device.type == "cuda":
-        return warp_cuda(ims, flow)
+        return warp_cuda(ims, flow, row0)
     raise ValueError(f"warp has no version for device {flow.device}")
 
 
@@ -256,24 +286,28 @@ class _WarpFn(torch.autograd.Function):
                          zip(dims, ctx.needs_input_grad[1:])])
 
 
-def _dispatch(ims, flow):
+def _dispatch(ims, flow, row0: int = 0):
     if torch.is_grad_enabled() and (flow.requires_grad
                                     or any(im.requires_grad for im in ims)):
+        if row0 or ims[0].shape[2] != flow.shape[2]:
+            raise RuntimeError("the warp's row window has no backward "
+                               "(spatial sharding is inference only)")
         return list(_WarpFn.apply(flow, *ims))
-    return _forward(ims, flow)
+    return _forward(ims, flow, row0)
 
 
-def flow_warp(im, flow):
-    """Backward-warp `im` (N, C, H, W) by `flow` (N, 2, H, W)."""
-    return _dispatch([im], flow)[0]
+def flow_warp(im, flow, row0: int = 0):
+    """Backward-warp `im` (N, C, H, W) by `flow` (N, 2, H, W); with a row
+    window, flow (N, 2, Hl, W) and the output rows [row0, row0 + Hl)."""
+    return _dispatch([im], flow, row0)[0]
 
 
-def flow_warp_packed(ims, flow):
+def flow_warp_packed(ims, flow, row0: int = 0):
     """Backward-warp several same-size tensors by one flow, in one launch.
     Tensors of mixed dtypes are promoted to their common dtype first, as
     the JAX package's concatenation does; then the result is bit-identical
-    to separate flow_warp calls. Returns a list."""
+    to separate flow_warp calls. Returns a list. `row0`: as flow_warp."""
     dt = ims[0].dtype
     for im in ims[1:]:
         dt = torch.promote_types(dt, im.dtype)
-    return _dispatch([im.to(dt) for im in ims], flow)
+    return _dispatch([im.to(dt) for im in ims], flow, row0)

@@ -41,11 +41,6 @@ import torch.distributed as dist
 from ..utils.device import resolve_device
 from .tensor import COLLECTIVES, gather_whole, split_params
 
-SPATIAL_WAITS = ("spatial sharding (parallel/spatial.py, "
-                 "engine.set_spatial_sharding: halo exchanges) waits for "
-                 "ROADMAP.md Queue 1 item 8")
-
-
 def _env_int(name: str, default: int) -> int:
     return int(os.environ.get(name, default))
 
