@@ -53,23 +53,27 @@ result line):
    recomputed from the files. Then each IntraNoAR conv alone at its
    1088x1920 shape: those whose cuDNN algorithm launches 100 kernels or
    more;
-8. training (vcm_ts_tpu_torch/train): kernels A' (the warp's backward) and
-   C' (k-major space-to-depth) against their plain versions, f32 and
-   bf16, at the training step's shapes (256x256 crops, batch 4; A' under
-   an iid, a smooth and a zero flow; two calls give the same d flow, and
-   whether d im repeats is printed; A''s time split into its d flow pass
-   alone, the f32 zero fill and the bf16 cast) and one 1088x1920 row
-   each, beside the library call
-   (grid_sampler_2d_backward; pixel_unshuffle + the channel permutation)
-   and the cuBLAS products of kernel B's backward; a 64x64 cascade step
-   of the seeded DMC on the CPU and on the card (loss, gradients,
-   parameters after AdamW); the port bench's --train-step in f32, --mp
-   and --grad-accum 2 (frames/s, peak memory); one cascade step under the
-   profiler (launches counted); whether two cascade
-   steps from one state give the same parameters bit for bit, also under
-   torch.use_deterministic_algorithms, and whether the bilinear flow
-   upsample's backward repeats (printed, not gates); and a gate that the
-   loss on a fixed 256x256 batch falls over 20 steps;
+8. training (vcm_ts_tpu_torch/train): kernels A' (the warp's backward),
+   C' (k-major space-to-depth) and E' (the bilinear resize's backward)
+   against their plain versions, f32 and bf16, at the training step's
+   shapes (256x256 crops, batch 4; A' under an iid, a smooth, a zero and
+   a converging flow; two calls give the same d flow and d im bit for
+   bit; A''s time split into its bucket sort and its accumulate passes
+   beside its d flow pass alone; E' at SpyNet's flow upsampling, the
+   DMC's 0.5x motion resizes and the perceptual loss's resize to 224, two
+   calls bit-equal) and one 1088x1920 row of A' and C', beside the
+   library call (grid_sampler_2d_backward; pixel_unshuffle + the channel
+   permutation; upsample_bilinear2d_backward) and the cuBLAS products of
+   kernel B's backward; a 64x64 cascade step of the seeded DMC on the CPU
+   and on the card (loss, gradients, parameters after AdamW); the port
+   bench's --train-step in f32, --mp and --grad-accum 2 (frames/s, peak
+   memory); one cascade step under the profiler (launches counted, A''s
+   and E''s share of the device-busy time, gated under 1 %); two cascade
+   steps from one state, the same noise, give the same parameters bit for
+   bit in f32 and with bf16 compute (--mp), without
+   torch.use_deterministic_algorithms (gated; the ops that mode would
+   flag are listed); and a gate that the loss on a fixed 256x256 batch
+   falls over 20 steps;
 9. the codec eval harness at 1088x1920 (a 5-frame moving sequence written
    with the port's PNG codec, the seeded damped IntraNoAR and DMC saved as
    .pth, gop 4, so I P P P I: the I-frame restarts mid-sequence, 4 rate
@@ -87,11 +91,10 @@ result line):
    published widths, 4 anchors, stages me/single, rec/single and
    all/cascade x2, eval and a checkpoint after each epoch (launches
    counted); gates: stages in order, finite losses, eval metrics per
-   epoch, every checkpoint loads strict, and three runs resumed from the
-   cascade stage's first checkpoint repeat every iteration of the last
-   epoch within 10 times their largest gap to each other (at least 1e-3
-   relative: the card's steps are not deterministic), a limit under a
-   tenth of a resume with fresh moments; frames/s of the cascade stage after its
+   epoch, every checkpoint loads strict, two runs resumed from the
+   cascade stage's first checkpoint repeat every loss of the last epoch
+   bit for bit, and a resume with fresh moments differs; frames/s of the
+   cascade stage after its
    first epoch, the loader's wait share, eval and checkpoint seconds,
    peak memory;
 11. the perceptual losses and the Faster-RCNN eval detector (seeded
@@ -103,7 +106,9 @@ result line):
    forward + backward; (b) phase 8's cascade step with the ResNet loss:
    the 64x64 step card against CPU (phase 8's gate), wall, device-busy,
    launches, the port kernels' launches and peak memory beside phase 8's
-   step, and the loss falling over 20 steps; (c) the trainer CLI over
+   step, whether two such steps from one state give the same parameters
+   bit for bit (printed, not a gate), and the loss falling over 20 steps;
+   (c) the trainer CLI over
    phase 10's tree with one all/cascade stage marked perceptual
    (frames/s, p_dist > 0); (d) the detector through build_eval_adapter
    on phase 9's 1088x1920 frames: its networks on the card against the
@@ -174,7 +179,6 @@ from __future__ import annotations
 
 import argparse
 import copy
-import itertools
 import json
 import os
 import shutil
@@ -202,17 +206,35 @@ REPLACES = {
     "space_to_depth": "vcm_ts_tpu/ops/subpel_pallas.py:131 "
                       "(_kmajor_space_to_depth, in _relayout_bwd:149 and "
                       "_conv1x1_bwd:221)",
+    "resize_bwd": "vcm_ts_tpu/ops/resize.py:14 (bilinear_up2's gradient: "
+                  "XLA's transposed einsum of jax.image.resize; no Pallas "
+                  "kernel)",
 }
 SOURCES = {"warp": "vcm_ts_tpu_torch/csrc/warp.cu",
            "subpel_conv1x1": "vcm_ts_tpu_torch/csrc/subpel_conv1x1.cu",
            "pixel_shuffle_relayout": "vcm_ts_tpu_torch/csrc/pixel_shuffle.cu",
            "warp_twopass": "vcm_ts_tpu_torch/csrc/warp_twopass.cu",
            "warp_bwd": "vcm_ts_tpu_torch/csrc/warp_bwd.cu",
-           "space_to_depth": "vcm_ts_tpu_torch/csrc/space_to_depth.cu"}
+           "space_to_depth": "vcm_ts_tpu_torch/csrc/space_to_depth.cu",
+           "resize_bwd": "vcm_ts_tpu_torch/csrc/resize_bwd.cu"}
 # the __global__ functions of csrc/*.cu, as the profiler names them
 PORT_KERNEL_FUNCS = ("warp_kernel", "warp_narrow_kernel", "warp_twopass_kernel",
                      "conv_mma_bf16", "conv_fma_f32", "conv_narrow",
-                     "relayout_kernel", "warp_bwd_kernel", "s2d_kernel")
+                     "relayout_kernel", "warp_bwd_kernel", "warp_bwd_hist",
+                     "warp_bwd_scan", "warp_bwd_scatter", "warp_bwd_bounds",
+                     "warp_bwd_plan", "warp_bwd_accumulate",
+                     "warp_bwd_finalize",
+                     "s2d_kernel", "resize_bwd_kernel")
+# kernel A''s passes (csrc/warp_bwd.cu: the d flow pass alone; the bucket
+# sort and the tiles' plan; the accumulate pass and its finalize) and
+# kernel E''s, by profiler name
+A_BWD_FUNCS = ("warp_bwd_kernel", "warp_bwd_hist", "warp_bwd_scan",
+               "warp_bwd_scatter", "warp_bwd_bounds", "warp_bwd_plan",
+               "warp_bwd_accumulate", "warp_bwd_finalize")
+E_BWD_FUNCS = ("resize_bwd_kernel",)
+# the kernels every training path launches (A, A', B, C, C', E'; not D)
+TRAIN_KERNELS = ("warp", "warp_bwd", "subpel_conv1x1",
+                 "pixel_shuffle_relayout", "space_to_depth", "resize_bwd")
 H, W = 1088, 1920
 IQ, PQ = 0.5, 0.7
 CL = torch.channels_last
@@ -1512,23 +1534,47 @@ def _bf16_or_f32_tol(want, dtype, f32_rel):
     return (f32_rel if dtype == torch.float32 else 2.0 ** -7) * scale
 
 
+def converge_flow(n, h, w):
+    """Every output onto one interior pixel (half down, a third across, at
+    a fraction): one bucket of h * w outputs a plane, the worst skew."""
+    ys = torch.arange(h, device="cuda", dtype=torch.float32)
+    xs = torch.arange(w, device="cuda", dtype=torch.float32)
+    f = torch.stack([(w // 3 + 0.25 - xs)[None, :].expand(h, w),
+                     (h // 2 + 0.5 - ys)[:, None].expand(h, w)])
+    return f[None].repeat(n, 1, 1, 1)
+
+
+def pass_ms(fn, funcs, once="warp_bwd_plan"):
+    """Device ms of one fn() call spent in each of the kernels named in
+    funcs (profiler names): three calls under the profiler after a warm
+    one, divided by the launches seen of `once`, a kernel each call
+    launches once (the trace can miss a call's kernels)."""
+    fn()
+    prof = profile_ms(lambda: [fn() for _ in range(3)])
+    pk = prof["port_kernels"]
+    calls = max(1, pk.get(once, {"launches": 0})["launches"])
+    return {f: pk.get(f, {"ms": 0.0})["ms"] / calls for f in funcs}
+
+
 def check_warp_bwd(g):
     """Kernel A' against warp_backward_plain, f32 and bf16, iid N(0, 8^2),
-    smooth and zero flows; d flow within 1e-5 (fixed order) and d im
-    within 1e-4 (f32 atomics, order changing run to run) of the largest
-    magnitude in f32, one bf16 ulp in bf16. Two calls must give the same
-    d flow; whether they give the same d im is recorded. Beside it the
-    parts of a call: the kernel's d flow pass alone (need_im=False), the
-    wrapper's f32 zero fill of the d im buffers and, for bf16, their cast;
-    and aten's grid_sampler_2d_backward (bilinear, border,
-    align_corners=True: the same function up to the clip's 0.5 at a
-    bound) on the concatenated tensor."""
+    smooth, zero and converging flows; d flow within 1e-5 and d im within
+    1e-4 of the largest magnitude in f32 (both sum in fixed orders other
+    than the plain version's), one bf16 ulp in bf16. Two calls must give
+    the same d flow and d im bit for bit. Beside it the parts of a call:
+    the bucket sort and the tiles' plan (warp_bwd_hist, _scan, _scatter,
+    _bounds, _plan), the accumulate pass (d flow of each tile's outputs,
+    then d im; with _finalize for split lists), both for the packed rows,
+    and, for comparison, the d flow pass alone (need_im=False); and aten's grid_sampler_2d_backward
+    (bilinear, border, align_corners=True: the same function up to the
+    clip's 0.5 at a bound) on the concatenated tensor. A converging row
+    times the kernel alone (one block sums a whole plane's bucket)."""
     from vcm_ts_tpu_torch.ops import warp as tw
 
     rows = []
     for name, chans, n, h, w in WARP_BWD_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            for kind in ("iid", "smooth", "zero"):
+            for kind in ("iid", "smooth", "zero", "converge"):
                 ims = [(torch.rand if c == 3 else torch.randn)(
                     (n, c, h, w), device="cuda", generator=g).to(
                         dtype=dtype, memory_format=CL) for c in chans]
@@ -1536,11 +1582,14 @@ def check_warp_bwd(g):
                                   generator=g).to(dtype=dtype,
                                                   memory_format=CL)
                       for c in chans]
-                flow = (torch.cat([make_flow(kind, h, w, g)
-                                   for _ in range(n)])
-                        if kind != "zero" else torch.zeros(
-                            (n, 2, h, w), device="cuda")).to(
-                    dtype=dtype, memory_format=CL)
+                if kind == "zero":
+                    flow = torch.zeros((n, 2, h, w), device="cuda")
+                elif kind == "converge":
+                    flow = converge_flow(n, h, w)
+                else:
+                    flow = torch.cat([make_flow(kind, h, w, g)
+                                      for _ in range(n)])
+                flow = flow.to(dtype=dtype, memory_format=CL)
                 dflow, dims = tw.warp_backward_cuda(ims, flow, gs)
                 again = tw.warp_backward_cuda(ims, flow, gs)
                 wflow, wims = tw.warp_backward_plain(ims, flow, gs)
@@ -1556,38 +1605,105 @@ def check_warp_bwd(g):
                     raise AssertionError(
                         f"warp_bwd {label}: d flow err {err_f} (tol "
                         f"{tol_f}), d im err {err_i} (tol {tol_i})")
-                if not torch.equal(dflow, again[0]):
+                if not (torch.equal(dflow, again[0])
+                        and all(torch.equal(a, b)
+                                for a, b in zip(dims, again[1]))):
                     raise AssertionError(f"warp_bwd {label}: two calls on "
-                                         "the same inputs differ in d flow")
-                acc = [torch.zeros_like(im, dtype=torch.float32,
-                                        memory_format=CL) for im in ims]
-                cat = torch.cat(ims, 1) if len(ims) > 1 else ims[0]
-                gcat = torch.cat(gs, 1) if len(gs) > 1 else gs[0]
-                grid = torch.cat([_grid(flow[i:i + 1].float())
-                                  for i in range(n)]).to(dtype)
-                t = times(lambda: tw.warp_backward_cuda(ims, flow, gs),
-                          lambda: tw.warp_backward_plain(ims, flow, gs),
-                          lambda: torch.ops.aten.grid_sampler_2d_backward(
-                              gcat, cat, grid, 0, 1, True, [True, True]))
+                                         "the same inputs differ")
+                del again, wims
+
+                def kernel():
+                    return tw.warp_backward_cuda(ims, flow, gs)
+
+                if kind == "converge":
+                    t = dict(ms=graph_ms(kernel, iters=1), eager_ms=None,
+                             plain_ms=None, library_ms=None,
+                             library_eager_ms=None)
+                else:
+                    cat = torch.cat(ims, 1) if len(ims) > 1 else ims[0]
+                    gcat = torch.cat(gs, 1) if len(gs) > 1 else gs[0]
+                    grid = torch.cat([_grid(flow[i:i + 1].float())
+                                      for i in range(n)]).to(dtype)
+                    t = times(kernel,
+                              lambda: tw.warp_backward_plain(ims, flow, gs),
+                              lambda: torch.ops.aten.grid_sampler_2d_backward(
+                                  gcat, cat, grid, 0, 1, True, [True, True]))
+                    del cat, gcat, grid
+                # the passes' split of the packed rows (the table's)
+                parts = (pass_ms(kernel, A_BWD_FUNCS[1:])
+                         if len(chans) > 1 and kind != "converge" else None)
                 b, by = bound_ms(3 * nbytes(*ims) + 2 * nbytes(flow),
-                                 22 * cat.numel(), torch.float32)
+                                 22 * sum(im.numel() for im in ims),
+                                 torch.float32)
                 rows.append(dict(
                     name="warp_bwd", shape=label, dtype=dt, flow=kind,
                     max_abs_err=max(err_f, err_i),
                     err_dflow=err_f, tol_dflow=tol_f, err_dim=err_i,
                     tol_dim=tol_i, tol=max(tol_f, tol_i), **t,
-                    dim_repeats=all(torch.equal(a, b)
-                                    for a, b in zip(dims, again[1])),
+                    dim_repeats=True,
+                    bucket_ms=(sum(parts[f] for f in A_BWD_FUNCS[1:6])
+                               if parts else None),
+                    accumulate_ms=(sum(parts[f] for f in A_BWD_FUNCS[6:])
+                                   if parts else None),
                     dflow_only_ms=graph_ms(lambda: tw.warp_backward_cuda(
                         ims, flow, gs, False)),
-                    fill_ms=graph_ms(lambda: [
-                        torch.zeros_like(im, dtype=torch.float32,
-                                         memory_format=CL) for im in ims]),
-                    cast_ms=(graph_ms(lambda: [a.to(dtype) for a in acc])
-                             if dtype != torch.float32 else 0.0),
                     library="aten.grid_sampler_2d_backward(border, "
                             "align_corners=True)",
                     bound_ms=b, bound_by=by))
+    return rows
+
+
+# Kernel E' at the cascade step's bilinear resizes (batch 4 at 256x256):
+# SpyNet's flow upsampling (bilinear_up2 of the 2-channel flow at each
+# level's input size), the DMC's 0.5x motion resizes (bilinear_down2), and
+# the perceptual loss's resize to 224: (label, N, C, H, W, output H, W).
+RESIZE_BWD_SHAPES = (
+    ("SpyNet up2 level 3", TN, 2, TH // 16, TW // 16, TH // 8, TW // 8),
+    ("SpyNet up2 level 2", TN, 2, TH // 8, TW // 8, TH // 4, TW // 4),
+    ("SpyNet up2 level 1", TN, 2, TH // 4, TW // 4, TH // 2, TW // 2),
+    ("SpyNet up2 level 0", TN, 2, TH // 2, TW // 2, TH, TW),
+    ("DMC down2 mv2", TN, 2, TH, TW, TH // 2, TW // 2),
+    ("DMC down2 mv3", TN, 2, TH // 2, TW // 2, TH // 4, TW // 4),
+    ("perceptual resize to 224", TN, 3, TH, TW, 224, 224),
+)
+
+
+def check_resize_bwd(g):
+    """Kernel E' against resize_backward_plain (Ry^T . g . Rx, cuBLAS
+    float64 products rounded once), f32 and bf16: within 1e-5 of the
+    largest magnitude in f32 (E' sums in f32, in its own order), one bf16
+    ulp in bf16; two calls give
+    the same bits; beside aten's upsample_bilinear2d_backward (PyTorch's
+    atomic backward of F.interpolate) and the bound (g read once, d x
+    written once)."""
+    from vcm_ts_tpu_torch.ops import resize as rs
+
+    rows = []
+    for name, n, c, h, w, ho, wo in RESIZE_BWD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            gr = torch.randn((n, c, ho, wo), device="cuda",
+                             generator=g).to(dtype=dtype, memory_format=CL)
+            got = rs.resize_backward_cuda(gr, h, w)
+            want = rs.resize_backward_plain(gr, h, w)
+            err = float((got.float() - want.float()).abs().max())
+            tol = _bf16_or_f32_tol(want, dtype, 1e-5)
+            dt = "f32" if dtype == torch.float32 else "bf16"
+            label = f"{name} N={n} C={c} {ho}x{wo} -> {h}x{w} {dt}"
+            if not err <= tol:
+                raise AssertionError(f"resize_bwd {label}: err {err} (tol "
+                                     f"{tol})")
+            if not torch.equal(got, rs.resize_backward_cuda(gr, h, w)):
+                raise AssertionError(f"resize_bwd {label}: two calls on the "
+                                     "same inputs differ")
+            t = times(lambda: rs.resize_backward_cuda(gr, h, w),
+                      lambda: rs.resize_backward_plain(gr, h, w),
+                      lambda: torch.ops.aten.upsample_bilinear2d_backward(
+                          gr, [ho, wo], [n, c, h, w], False))
+            b, by = bound_ms(nbytes(gr, got), 0, dtype)
+            rows.append(dict(name="resize_bwd", shape=label, dtype=dt,
+                             max_abs_err=err, tol=tol, **t,
+                             library="aten.upsample_bilinear2d_backward",
+                             bound_ms=b, bound_by=by))
     return rows
 
 
@@ -1724,18 +1840,17 @@ def train_reference(pl_kind=None):
 
 
 def train_repeatable(seq):
-    """One cascade step of the seeded DMC from the same state, twice, with
-    the same noise: {"identical": all parameters equal bit for bit, the
-    count and names of the parameter tensors that differ}; the same pair
-    of steps under torch.use_deterministic_algorithms(True)
-    ("identical_deterministic_mode"), and whether the backward of
-    ops/resize.py's bilinear 2x upsample (SpyNet's flow upsampling; CUDA
-    adds its gradient with atomics) gives the same bits twice
-    ("upsample_backward_repeats")."""
+    """Two cascade steps of the seeded DMC from the same state with the
+    same noise, in f32 and with bf16 compute (--mp), without
+    torch.use_deterministic_algorithms: {"f32" / "mp": the count and
+    names of the parameter tensors that differ, "identical": none in
+    either}; then, as a record, one f32 step under
+    torch.use_deterministic_algorithms(True, warn_only=True): the ops that
+    mode flags as having no deterministic CUDA path ("flagged")."""
     import copy
+    import warnings
 
     from vcm_ts_tpu_torch.models.dmc import make_dpb
-    from vcm_ts_tpu_torch.ops.resize import bilinear_up2
     from vcm_ts_tpu_torch.train import train_step as tts
     from vcm_ts_tpu_torch.train.optimizer import make_stage_optimizer
     from vcm_ts_tpu_torch.utils.weights import make_dmc
@@ -1744,49 +1859,41 @@ def train_repeatable(seq):
     noises = tts.draw_cascade_noise(
         base, seq[1:], torch.Generator(device="cuda").manual_seed(3))
 
-    def two_steps():
-        params = []
-        for _ in range(2):
-            m = copy.deepcopy(base)
-            opt = make_stage_optimizer(m, "all", 1e-4)
-            step = tts.make_cascade_step(m, opt, _train_stage(),
-                                         lambdas=LAMBDAS, dist_lambda=1.0,
-                                         pl_lambda=0.0)
-            step(seq[1:], seq[1:], make_dpb(seq[0]), noises)
-            torch.cuda.synchronize()
-            params.append({k: p.detach().clone() for k, p in
-                           m.named_parameters()})
-        return [k for k in params[0] if not torch.equal(params[0][k],
-                                                         params[1][k])]
+    def one_step(compute_dtype):
+        m = copy.deepcopy(base)
+        opt = make_stage_optimizer(m, "all", 1e-4)
+        step = tts.make_cascade_step(m, opt, _train_stage(),
+                                     lambdas=LAMBDAS, dist_lambda=1.0,
+                                     pl_lambda=0.0,
+                                     compute_dtype=compute_dtype)
+        step(seq[1:], seq[1:], make_dpb(seq[0]), noises)
+        torch.cuda.synchronize()
+        return {k: p.detach().clone() for k, p in m.named_parameters()}
 
-    names = two_steps()
+    out = {"params": sum(1 for _ in base.parameters())}
+    for label, dt in (("f32", None), ("mp", torch.bfloat16)):
+        a, b = one_step(dt), one_step(dt)
+        out[label] = [k for k in a if not torch.equal(a[k], b[k])]
+    out["identical"] = not (out["f32"] or out["mp"])
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        names_det = two_steps()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            one_step(None)
     finally:
         torch.use_deterministic_algorithms(False)
-    x = torch.randn((TN, 2, TH // 2, TW // 2), device="cuda",
-                    generator=torch.Generator(device="cuda").manual_seed(5))
-    gy = torch.randn((TN, 2, TH, TW), device="cuda",
-                     generator=torch.Generator(device="cuda").manual_seed(6))
-    grads = []
-    for _ in range(2):
-        xi = x.clone().requires_grad_()
-        bilinear_up2(xi).backward(gy)
-        grads.append(xi.grad)
-    return {"identical": not names, "differ": len(names),
-            "params": sum(1 for _ in base.parameters()), "names": names,
-            "identical_deterministic_mode": not names_det,
-            "upsample_backward_repeats": torch.equal(*grads)}
+    out["flagged"] = sorted({str(w.message).split(" does not have a "
+                                                  "deterministic")[0]
+                             for w in caught
+                             if "deterministic" in str(w.message)})
+    return out
 
 
 def run_train_bench(label, argv):
     """The port bench's --train-step; every kernel of the training path
     launched (A, A', B, C, C'; not D)."""
     res = run_bench(label, argv)
-    missing = [k for k in ("warp", "warp_bwd", "subpel_conv1x1",
-                           "pixel_shuffle_relayout", "space_to_depth")
-               if not res["launches"][k] > 0]
+    missing = [k for k in TRAIN_KERNELS if not res["launches"][k] > 0]
     if missing:
         raise AssertionError(f"train bench {label}: {missing} not launched, "
                              f"launches {res['launches']}")
@@ -1837,8 +1944,7 @@ def run_train(smi):
     one()
     torch.cuda.synchronize()
     out["launches"] = dict(cuda_build.LAUNCHES)
-    for k in ("warp", "warp_bwd", "subpel_conv1x1", "pixel_shuffle_relayout",
-              "space_to_depth"):
+    for k in TRAIN_KERNELS:
         if not out["launches"][k] > 0:
             raise AssertionError(f"cascade step: {k} not launched: "
                                  f"{out['launches']}")
@@ -1855,15 +1961,30 @@ def run_train(smi):
     ours = ", ".join(f"{k} {v['ms']:.3f} ms x{v['launches']}"
                      for k, v in p["port_kernels"].items())
     say(f"[train profile] port kernels: {ours}")
+    pk = p["port_kernels"]
+    out["a_bwd_ms"] = sum(pk.get(f, {"ms": 0.0})["ms"] for f in A_BWD_FUNCS)
+    out["e_bwd_ms"] = sum(pk.get(f, {"ms": 0.0})["ms"] for f in E_BWD_FUNCS)
+    share = (out["a_bwd_ms"] + out["e_bwd_ms"]) / p["device_busy_ms"]
+    out["ae_bwd_share"] = share
+    say(f"[train profile] kernel A' {out['a_bwd_ms']:.3f} ms "
+        f"({out['a_bwd_ms'] / p['device_busy_ms']:.5f} of the device-busy "
+        f"time) and E' {out['e_bwd_ms']:.3f} ms "
+        f"({out['e_bwd_ms'] / p['device_busy_ms']:.5f}) of the cascade "
+        f"step's {p['device_busy_ms']:.1f} ms ({smi})")
+    if not share < 0.01:
+        raise AssertionError(f"cascade step: A' and E' take {share:.4f} of "
+                             "the device-busy time (limit 0.01)")
     out["repeatable"] = train_repeatable(seq)
     r = out["repeatable"]
-    say(f"[train] two cascade steps from one state (4x{TH}x{TW} f32, the "
-        f"same noise): parameters bit-identical: {r['identical']} "
-        f"({r['differ']} of {r['params']} tensors differ"
-        + (f", e.g. {r['names'][:5]}" if r["names"] else "")
-        + f"); under torch.use_deterministic_algorithms: "
-        f"{r['identical_deterministic_mode']}; bilinear_up2's backward "
-        f"twice gives the same bits: {r['upsample_backward_repeats']}")
+    say(f"[train] two cascade steps from one state (4x{TH}x{TW}, the same "
+        f"noise, no deterministic mode): parameters bit-identical in f32 "
+        f"({len(r['f32'])} of {r['params']} tensors differ) and with bf16 "
+        f"compute, --mp ({len(r['mp'])} differ): {r['identical']}; ops "
+        f"torch.use_deterministic_algorithms flags in the f32 step: "
+        f"{r['flagged'] or 'none'}")
+    if not r["identical"]:
+        raise AssertionError(f"two cascade steps from one state differ: f32 "
+                             f"{r['f32'][:5]}, mp {r['mp'][:5]}")
 
     losses = []
     for _ in range(20):
@@ -2083,7 +2204,7 @@ def say_eval(v, smi):
 
 # ----------------------------------------------------------------- phase 10
 LOOP_TRAIN, LOOP_TEST, LOOP_T = 8, 4, 6  # sequences, sequences, frames
-RESUMES, RESUME_SPREAD_X = 3, 10
+RESUMES = 2
 LOOP_STAGES = [["1", "me", "single", "me", "none", "0.0001", "1", "false"],
                ["1", "rec", "single", "rec", "rec", "0.0001", "1", "false"],
                ["2", "all", "cascade", "rec", "all", "0.0001", "2", "false"]]
@@ -2191,9 +2312,7 @@ def run_trainloop(out_dir, smi):
     rec, out["run_s"] = _trainer(["--config-file", cfg])
     out["launches"] = dict(cuda_build.LAUNCHES)
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
-    missing = [k for k in ("warp", "warp_bwd", "subpel_conv1x1",
-                           "pixel_shuffle_relayout", "space_to_depth")
-               if not out["launches"][k] > 0]
+    missing = [k for k in TRAIN_KERNELS if not out["launches"][k] > 0]
     if missing:
         raise AssertionError(f"train loop: {missing} not launched: "
                              f"{out['launches']}")
@@ -2223,14 +2342,10 @@ def run_trainloop(out_dir, smi):
 
     # resume from the cascade stage's first epoch (mid-stage: the moments
     # are restored) RESUMES times from the same checkpoint, and, as a
-    # control, once with fresh moments. The card's steps are not
-    # deterministic (A''s f32 atomics, bilinear_up2's backward), so two
-    # runs of one epoch from one state part in their last bits and the
-    # gap grows over the steps: the uninterrupted run's epoch is one more
-    # such run. Each resume is held at every iteration within
-    # RESUME_SPREAD_X times the resumes' largest gap to each other there
-    # (at least 1e-3 relative), a limit that must stay under a tenth of
-    # the fresh-moments control's difference.
+    # control, once with fresh moments. The card's steps repeat bit for
+    # bit (kernels A' and E' sum in fixed orders), and the noise is keyed
+    # by (seed, epoch), so every resume's losses equal the uninterrupted
+    # run's at every iteration, as on the CPU; the control must differ.
     def resumed(name):
         d = j(root, name)
         os.makedirs(d)
@@ -2247,23 +2362,18 @@ def run_trainloop(out_dir, smi):
         raise AssertionError(f"train loop resume: {[len(r) for r, _ in runs]}"
                              f" iterations, want {len(want)}")
     out["resume_rel_diff"] = [_rel_diffs(r, want) for r, _ in runs]
-    out["resume_spread"] = [max(x) for x in zip(*(
-        _rel_diffs(a[0], b[0]) for a, b in itertools.combinations(runs, 2)))]
     out["fresh_moments_rel_diff"] = _rel_diffs(
         [it["loss"] for it in _resume_fresh_moments(cfg, root)["iterations"]],
         want)
-    out["resume_limit"] = [max(1e-3, RESUME_SPREAD_X * x)
-                           for x in out["resume_spread"]]
-    for i, lim in enumerate(out["resume_limit"]):
-        gaps = [d[i] for d in out["resume_rel_diff"]]
-        if not (max(gaps) <= lim
-                and lim <= 0.1 * out["fresh_moments_rel_diff"][i]):
+    for k, (r, _) in enumerate(runs):
+        if r != want:
+            gaps = _g3(out["resume_rel_diff"][k])
             raise AssertionError(
-                f"train loop resume, iteration {i}: relative differences "
-                f"{_g3(gaps)} to the uninterrupted run, limit {lim:.3g} (the "
-                f"resumes apart by up to {out['resume_spread'][i]:.3g}), "
-                f"fresh-moments control "
-                f"{out['fresh_moments_rel_diff'][i]:.3g}")
+                f"train loop resume {k}: losses differ from the "
+                f"uninterrupted run's (relative {gaps} by iteration)")
+    if not max(out["fresh_moments_rel_diff"]) > 0:
+        raise AssertionError("train loop resume: fresh moments gave the "
+                             "uninterrupted run's losses")
 
     # the first cascade epoch pays the cascade step's warm-up
     cascade = [e for e in epochs if e["stage"] == 2]
@@ -2298,11 +2408,9 @@ def say_trainloop(v, bench_fps, smi):
         f"share {v['loader_wait_share']:.4f}, peak "
         f"{v['peak_bytes'] / 2**30:.2f} GiB, launches {v['launches']}; "
         f"{v['checkpoints']} checkpoints load strict; {RESUMES} resumes from "
-        f"epoch 2's checkpoint: epoch 3's losses per iteration within "
-        f"{'; '.join(_g3(d) for d in v['resume_rel_diff'])} relative of the "
-        f"uninterrupted run's, the resumes apart by up to "
-        f"{_g3(v['resume_spread'])}, limits {_g3(v['resume_limit'])}; with "
-        f"fresh moments instead {_g3(v['fresh_moments_rel_diff'])}; run "
+        f"epoch 2's checkpoint: epoch 3's losses equal the uninterrupted "
+        f"run's bit for bit at every iteration; with fresh moments instead "
+        f"{_g3(v['fresh_moments_rel_diff'])} relative; run "
         f"{v['run_s']:.1f} s, resume "
         f"{v['resume_s']:.1f} s (phase {v['phase_s']:.1f} s; {smi})")
 
@@ -2455,9 +2563,10 @@ def run_perceptual_step(smi):
         f"CPU: {out['reference']} ({time.perf_counter() - t:.1f} s)")
     model = make_dmc("cuda")
     opt = make_stage_optimizer(model, "all", 1e-4)
+    pl_kwargs = _pl_step_kwargs("resnet", "cuda")
     step = tts.make_cascade_step(model, opt, _train_stage(perceptual=True),
                                  lambdas=LAMBDAS, dist_lambda=1.0,
-                                 **_pl_step_kwargs("resnet", "cuda"))
+                                 **pl_kwargs)
     seq = _train_batch(TH, TW).cuda()
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -2473,9 +2582,7 @@ def run_perceptual_step(smi):
     torch.cuda.synchronize()
     out["launches"] = dict(cuda_build.LAUNCHES)
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
-    missing = [k for k in ("warp", "warp_bwd", "subpel_conv1x1",
-                           "pixel_shuffle_relayout", "space_to_depth")
-               if not out["launches"][k] > 0]
+    missing = [k for k in TRAIN_KERNELS if not out["launches"][k] > 0]
     if missing or not float(aux.p_dist.min()) > 0:
         raise AssertionError(f"perceptual cascade step: {missing} not "
                              f"launched ({out['launches']}) or p_dist "
@@ -2486,6 +2593,23 @@ def run_perceptual_step(smi):
     torch.cuda.synchronize()
     out["wall_ms"] = (time.perf_counter() - t) / 3 * 1e3
     out["profile"] = profile_ms(one)
+    # a record, not a gate: two steps from one state, the same noise
+    noises = tts.draw_cascade_noise(
+        model, seq[1:], torch.Generator(device="cuda").manual_seed(3))
+    params = []
+    for _ in range(2):
+        m = copy.deepcopy(model)
+        st = tts.make_cascade_step(m, make_stage_optimizer(m, "all", 1e-4),
+                                   _train_stage(perceptual=True),
+                                   lambdas=LAMBDAS, dist_lambda=1.0,
+                                   **pl_kwargs)
+        st(seq[1:], seq[1:], make_dpb(seq[0]), noises)
+        torch.cuda.synchronize()
+        params.append({k: q.detach().clone()
+                       for k, q in m.named_parameters()})
+    out["repeat_differ"] = [k for k in params[0]
+                            if not torch.equal(params[0][k], params[1][k])]
+    del params
     losses = [float(one().loss.mean()) for _ in range(PL_GATE_STEPS)]
     out["gate_losses"] = losses
     if not (all(np.isfinite(losses))
@@ -2514,9 +2638,7 @@ def run_perceptual_loop(out_dir, smi):
     with open(os.path.join(root, "run", "metrics.jsonl")) as f:
         p_dist = [r["value"] for r in map(json.loads, f)
                   if r["tag"].startswith("train/p_dist/")]
-    missing = [k for k in ("warp", "warp_bwd", "subpel_conv1x1",
-                           "pixel_shuffle_relayout", "space_to_depth")
-               if not out["launches"][k] > 0]
+    missing = [k for k in TRAIN_KERNELS if not out["launches"][k] > 0]
     if (missing or [e["stage"] for e in epochs] != [0, 0]
             or not (losses and np.all(np.isfinite(losses)))
             or not (p_dist and min(p_dist) > 0)):
@@ -2669,6 +2791,10 @@ def run_perceptual(out_dir, smi, base_step):
     top = ", ".join(f"{k['name'][:50]} {k['ms']:.1f} ms x{k['launches']}"
                     for k in p["top_kernels"][:6])
     say(f"[perceptual step] top kernels: {top}")
+    d = s["repeat_differ"]
+    say(f"[perceptual step] two steps with the ResNet loss from one state, "
+        f"the same noise: parameters bit-identical {not d} ({len(d)} "
+        f"tensors differ" + (f", e.g. {d[:5]}" if d else "") + ")")
     t = time.perf_counter()
     out["loop"] = lp = run_perceptual_loop(out_dir, smi)
     say(f"[perceptual trainloop] trainer CLI, stage "
@@ -2884,8 +3010,6 @@ def _need(launches, names, label):
         raise AssertionError(f"{label}: {missing} not launched: {launches}")
 
 
-TRAIN_KERNELS = ("warp", "warp_bwd", "subpel_conv1x1",
-                 "pixel_shuffle_relayout", "space_to_depth")
 CODEC_KERNELS = ("warp", "subpel_conv1x1", "pixel_shuffle_relayout")
 
 
@@ -3760,21 +3884,29 @@ def say_rows(rows):
             extra += " launches per frame (P enc / P dec / I dec) " + \
                 " / ".join(map(str, r["per_frame"]))
         if r["name"] == "warp_bwd":
+            split = ("" if r["bucket_ms"] is None else
+                     f" passes: bucket sort and plan {r['bucket_ms']:.4f} ms,"
+                     f" accumulate (d flow + d im) "
+                     f"{r['accumulate_ms']:.4f} ms;")
             extra += (f" (d flow err {r['err_dflow']:.3g} tol "
                       f"{r['tol_dflow']:.3g}; d im err {r['err_dim']:.3g} "
-                      f"tol {r['tol_dim']:.3g}) parts: d flow pass alone "
-                      f"{r['dflow_only_ms']:.4f} ms, f32 fill "
-                      f"{r['fill_ms']:.4f} ms, cast {r['cast_ms']:.4f} ms;"
-                      f" two calls: same d flow, same d im "
-                      f"{r['dim_repeats']}")
+                      f"tol {r['tol_dim']:.3g}){split} the d flow pass alone "
+                      f"{r['dflow_only_ms']:.4f} ms; two calls: same d flow "
+                      f"and d im {r['dim_repeats']}")
+        if r["name"] == "resize_bwd":
+            extra += " two calls: same bits True"
         if "b_bwd_dx_ms" in r:
             extra += (f" kernel B backward cuBLAS f32 dx "
                       f"{r['b_bwd_dx_ms']:.4f} ms dw {r['b_bwd_dw_ms']:.4f}"
                       " ms")
         lib_e = ("" if r["library_eager_ms"] is None
                  else f" (eager {r['library_eager_ms']:.4f})")
-        say(f"[kernel] {r['name']} {r['shape']}: kernel_ms {r['ms']:.4f} "
-            f"(eager {r['eager_ms']:.4f}) plain_ms {r['plain_ms']:.4f} "
+        eager = ("" if r["eager_ms"] is None
+                 else f" (eager {r['eager_ms']:.4f})")
+        plain = ("not timed" if r["plain_ms"] is None
+                 else f"{r['plain_ms']:.4f}")
+        say(f"[kernel] {r['name']} {r['shape']}: kernel_ms {r['ms']:.4f}"
+            f"{eager} plain_ms {plain} "
             f"library_ms {lib}{lib_e} bound_ms "
             f"{r['bound_ms']:.4f} ({r['bound_by']}) max_abs_err "
             f"{r['max_abs_err']:.3g} (tol {r['tol']:.3g}){extra}")
@@ -3888,9 +4020,10 @@ def main():
             f"({r['top_launches']} x {r['top_kernel']}; {smi})")
 
     phase_done("7 vcm")
-    train_rows = check_warp_bwd(g) + check_space_to_depth(g)
+    train_rows = (check_warp_bwd(g) + check_space_to_depth(g)
+                  + check_resize_bwd(g))
     say_rows(train_rows)
-    say(f"[train] kernels A' and C' checked ({smi})")
+    say(f"[train] kernels A', C' and E' checked ({smi})")
     train = run_train(smi)
     rows += train_rows
     phase_done("8 train")
@@ -3924,7 +4057,8 @@ def main():
                                        tensor_parallel, spatial]
     kernels = []
     for name in ("warp", "warp_bwd", "subpel_conv1x1",
-                 "pixel_shuffle_relayout", "space_to_depth", "warp_twopass"):
+                 "pixel_shuffle_relayout", "space_to_depth", "warp_twopass",
+                 "resize_bwd"):
         r = next(r for r in rows if r["name"] == name)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],

@@ -1,5 +1,8 @@
 """PyTorch port, codec: one GOP (1 I-frame + 4 P-frames, 64x64, full
-widths, damped control init) through the JAX engine and the port's engine.
+widths) through the JAX engine and the port's engine, on the port's seeded
+damped init (`utils/weights.make_intra` / `make_dmc`, every weight x 0.5)
+carried into the JAX trees (`flax_params_like`: eval_shape templates, no
+eager flax init).
 
 The streams must be byte-identical, each stack must decode the other's
 streams, and the .bin container bytes must match. Within one stack the
@@ -11,13 +14,16 @@ versa. Across stacks the recons agree to f32 noise (atol 1e-4).
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_util import damp, load_flax, moving_frames
+from tests.test_torch_warp_twopass import flax_params_like
+from tests.torch_port_util import moving_frames
 from vcm_ts_tpu.codec import bitstream as jbs
 from vcm_ts_tpu.codec.engine import IntraCodec as JIntraCodec
 from vcm_ts_tpu.codec.engine import VideoCodec as JVideoCodec
@@ -26,8 +32,8 @@ from vcm_ts_tpu.models.dmc import make_dpb as j_make_dpb
 from vcm_ts_tpu.models.intra import IntraNoAR as JIntraNoAR
 from vcm_ts_tpu_torch.codec import bitstream as tbs
 from vcm_ts_tpu_torch.codec.engine import IntraCodec, VideoCodec, _i16
-from vcm_ts_tpu_torch.models.dmc import DMC, make_dpb
-from vcm_ts_tpu_torch.models.intra import IntraNoAR
+from vcm_ts_tpu_torch.models.dmc import make_dpb
+from vcm_ts_tpu_torch.utils.weights import make_dmc, make_intra
 
 # fine quantization, so the symbol planes are far from all-zero (about
 # 4.5 bpp per P-frame on these frames) and the byte comparison has teeth
@@ -60,17 +66,24 @@ def gop():
     ji = JIntraNoAR()
     jd = JDMC(anchor_num=4)
     x0 = jnp.zeros((1, H, W, 3))
-    ip = damp(ji.init(jax.random.PRNGKey(0), x0, 1.0))
-    dp = damp(jd.init(jax.random.PRNGKey(1), x0, j_make_dpb(x0), 1.0, 1.0,
-                      method="init_all"))
+    t_ic = IntraCodec(make_intra("cpu"), device="cpu")
+    t_vc = VideoCodec(make_dmc("cpu"), device="cpu")
+    ip = flax_params_like(lambda: ji.init(jax.random.PRNGKey(0), x0, 1.0),
+                          t_ic.model)
+    dp = flax_params_like(
+        lambda: jd.init(jax.random.PRNGKey(1), x0, j_make_dpb(x0), 1.0, 1.0,
+                        method="init_all"), t_vc.model)
     j_ic, j_vc = JIntraCodec(ji, ip), JVideoCodec(jd, dp)
-    t_ic = IntraCodec(load_flax(IntraNoAR(device="cpu"), ip), device="cpu")
-    t_vc = VideoCodec(load_flax(DMC(device="cpu"), dp), device="cpu")
     for c in (j_ic, j_vc, t_ic, t_vc):
         c.update()
     frames = moving_frames(2, 5)
-    jenc = _encode(j_ic, j_vc, frames, j_make_dpb, jnp.asarray)
-    tenc = _encode(t_ic, t_vc, frames, make_dpb, torch.from_numpy)
+    # XLA compiles and runs the JAX engine outside the interpreter lock, so
+    # its GOP overlaps the port's
+    with ThreadPoolExecutor(1) as pool:
+        jax_run = pool.submit(_encode, j_ic, j_vc, frames, j_make_dpb,
+                              jnp.asarray)
+        tenc = _encode(t_ic, t_vc, frames, make_dpb, torch.from_numpy)
+        jenc = jax_run.result()
     return {"frames": frames, "jax": (j_ic, j_vc), "port": (t_ic, t_vc),
             "jenc": jenc, "tenc": tenc}
 

@@ -1,7 +1,9 @@
 """PyTorch port, models: IntraNoAR.forward and a 4-frame chain of
 DMC.forward_one_frame against the JAX modules on the CPU, full widths
-(IntraNoAR N=192; DMC 64/64/96) at 64x64, on the damped control init
-(every kernel x 0.5) carried across with the port's weights.py.
+(IntraNoAR N=192; DMC 64/64/96) at 64x64, on the port's seeded damped
+init (`utils/weights.make_intra` / `make_dmc`, every weight x 0.5)
+carried into the JAX trees (`flax_params_like`: eval_shape templates, no
+eager flax init).
 
 Tolerances: recon and every DPB tensor atol 1e-4 (f32 conv stacks summed
 in another order than XLA, threaded through the chain); the bpp and mse
@@ -10,6 +12,7 @@ terms rtol 1e-4, except the intra Gaussian bpp_y (see its test).
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 
 import jax
@@ -18,14 +21,15 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_util import damp, load_flax, moving_frames, np_tree
+from tests.test_torch_warp_twopass import flax_params_like
+from tests.torch_port_util import moving_frames, np_tree
 from vcm_ts_tpu.models import common as j_common
 from vcm_ts_tpu.models.dmc import DMC as JDMC
 from vcm_ts_tpu.models.dmc import make_dpb as j_make_dpb
 from vcm_ts_tpu.models.intra import IntraNoAR as JIntraNoAR
 from vcm_ts_tpu_torch.models import common as tc
-from vcm_ts_tpu_torch.models.dmc import DMC, make_dpb
-from vcm_ts_tpu_torch.models.intra import IntraNoAR
+from vcm_ts_tpu_torch.models.dmc import make_dpb
+from vcm_ts_tpu_torch.utils.weights import make_dmc, make_intra
 
 SCALARS = ("bpp", "bpp_y", "bpp_z", "mse")
 P_SCALARS = SCALARS + ("bpp_mv_y", "bpp_mv_z", "me_mse")
@@ -34,18 +38,21 @@ P_SCALARS = SCALARS + ("bpp_mv_y", "bpp_mv_z", "me_mse")
 @pytest.fixture(scope="module")
 def intra():
     jmodel = JIntraNoAR()
-    params = damp(jmodel.init(jax.random.PRNGKey(0),
-                              jnp.zeros((1, 64, 64, 3)), 1.0))
-    return jmodel, params, load_flax(IntraNoAR(device="cpu"), params)
+    port = make_intra("cpu")
+    params = flax_params_like(lambda: jmodel.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)), 1.0), port)
+    return jmodel, params, port
 
 
 @pytest.fixture(scope="module")
 def dmc():
     jmodel = JDMC(anchor_num=4)
     x0 = jnp.zeros((1, 64, 64, 3))
-    params = damp(jmodel.init(jax.random.PRNGKey(1), x0, j_make_dpb(x0),
-                              1.0, 1.0, method="init_all"))
-    return jmodel, params, load_flax(DMC(device="cpu"), params)
+    port = make_dmc("cpu")
+    params = flax_params_like(lambda: jmodel.init(
+        jax.random.PRNGKey(1), x0, j_make_dpb(x0), 1.0, 1.0,
+        method="init_all"), port)
+    return jmodel, params, port
 
 
 def _check_scalars_rtol(got, want, keys, rtol, where=""):
@@ -100,20 +107,33 @@ def test_dmc_forward_chain_matches_jax(dmc):
     frames = moving_frames(1, 5)
     fwd = jax.jit(partial(jmodel.apply, params),
                   static_argnames=("is_first_p",))
-    jdpb = j_make_dpb(jnp.asarray(frames[0]))
-    tdpb = make_dpb(torch.from_numpy(frames[0]))
-    for t, x in enumerate(frames[1:]):
-        first = t == 0
-        want = fwd(jnp.asarray(x), jdpb, 0.7, 0.8, is_first_p=first)
-        with torch.no_grad():
-            got = port.forward_one_frame(torch.from_numpy(x), tdpb, 0.7, 0.8,
-                                         is_first_p=first)
+
+    def jax_chain():
+        outs, jdpb = [], j_make_dpb(jnp.asarray(frames[0]))
+        for t, x in enumerate(frames[1:]):
+            outs.append(fwd(jnp.asarray(x), jdpb, 0.7, 0.8,
+                            is_first_p=t == 0))
+            jdpb = outs[-1]["dpb"]
+        return outs
+
+    # XLA compiles and runs the JAX chain outside the interpreter lock, so
+    # it overlaps the port's chain
+    with ThreadPoolExecutor(1) as pool:
+        jax_run = pool.submit(jax_chain)
+        tdpb = make_dpb(torch.from_numpy(frames[0]))
+        gots = []
+        for t, x in enumerate(frames[1:]):
+            with torch.no_grad():
+                gots.append(port.forward_one_frame(
+                    torch.from_numpy(x), tdpb, 0.7, 0.8, is_first_p=t == 0))
+            tdpb = gots[-1]["dpb"]
+        wants = jax_run.result()
+    for t, (got, want) in enumerate(zip(gots, wants)):
         for k in ("ref_frame", "ref_feature", "ref_y", "ref_mv_y"):
             np.testing.assert_allclose(
                 np_tree(got["dpb"][k]), np.asarray(want["dpb"][k]), rtol=0,
                 atol=1e-4, err_msg=f"frame {t}: dpb {k}")
         _check_scalars(got, want, P_SCALARS, f"frame {t}")
-        jdpb, tdpb = want["dpb"], got["dpb"]
 
 
 def test_encode_symbols_match_forward_dual_prior():

@@ -12,9 +12,11 @@ One NCCL rank (NCCL takes one rank per device, and the card machine has
 one) runs the DP and FSDP steps against the plain step on the same rows;
 two gloo ranks share the card (gloo stages CUDA tensors through the host)
 against one process on the 8 global rows; a fleet of two codec replicas
-sharing the card against the unsharded batch, twice, four rows deep. The
-card's steps are not
-deterministic (A''s f32 atomics), so the tolerance is chip_smoke.py's
+sharing the card against the unsharded batch, twice, four rows deep. A
+step repeats bit for bit on the card (kernels A' and E' sum in fixed
+orders), but the DP and FSDP steps take their rows through convs and sums
+at other batch sizes than the plain step, and reduce the gradients over
+the ranks in another order, so the tolerance is chip_smoke.py's
 card-against-card one (phase 8): FrameAux rtol 1e-3, gradients (the first
 moments) within 2e-2 of each leaf's largest magnitude, parameters within
 1e-6 + 0.05 lr where the gradient is above 4e-2 of its leaf's largest,

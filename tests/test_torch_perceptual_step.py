@@ -21,6 +21,7 @@ from __future__ import annotations
 import copy
 import functools
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -75,19 +76,23 @@ def test_perceptual_single_step_matches_jax(models, nets, tmp_path):
     jstep = jts.make_single_frame_step(jmodel, tx, JStageParams(**stage_kw),
                                        lambdas=LAMBDAS, dist_lambda=1.0,
                                        pl_lambda=pl_lambda, pl_fn=jpl)
-    jp, jstate, jaux, _ = jstep(
-        tree_copy(params), tree_copy(opt_state), jnp.asarray(x),
-        jnp.asarray(x), j_make_dpb(jnp.asarray(ref), CH[1], CH[2]), key,
-        True)
-
     port = copy.deepcopy(port0)
-    opt = make_stage_optimizer(port, "all", LR)
-    step = ts.make_single_frame_step(port, opt, StageParams(**stage_kw),
-                                     lambdas=LAMBDAS, dist_lambda=1.0,
-                                     pl_lambda=pl_lambda, pl_fn=pl)
-    aux, _ = step(torch.from_numpy(x), torch.from_numpy(x),
-                  make_dpb(torch.from_numpy(ref), CH[1], CH[2]),
-                  jax_noise(key, port.noise_shapes(2, 64, 64)), True)
+    noise = jax_noise(key, port.noise_shapes(2, 64, 64))
+    # XLA compiles and runs the JAX step outside the interpreter lock, so
+    # it overlaps the port's step
+    with ThreadPoolExecutor(1) as pool:
+        jax_run = pool.submit(
+            jstep, tree_copy(params), tree_copy(opt_state), jnp.asarray(x),
+            jnp.asarray(x), j_make_dpb(jnp.asarray(ref), CH[1], CH[2]), key,
+            True)
+        opt = make_stage_optimizer(port, "all", LR)
+        step = ts.make_single_frame_step(port, opt, StageParams(**stage_kw),
+                                         lambdas=LAMBDAS, dist_lambda=1.0,
+                                         pl_lambda=pl_lambda, pl_fn=pl)
+        aux, _ = step(torch.from_numpy(x), torch.from_numpy(x),
+                      make_dpb(torch.from_numpy(ref), CH[1], CH[2]), noise,
+                      True)
+        jp, jstate, jaux, _ = jax_run.result()
     for f in ts.FrameAux._fields:
         np.testing.assert_allclose(getattr(aux, f).numpy(),
                                    np.asarray(getattr(jaux, f)), rtol=1e-4,

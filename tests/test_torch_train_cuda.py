@@ -1,21 +1,25 @@
-"""The training slice on the card: kernels A' and C' against their plain
-versions, the autograd paths of A, B and C on CUDA tensors, and a cascade
-train step on the card against the same step on the CPU.
+"""The training slice on the card: kernels A', C' and E' against their
+plain versions, the autograd paths of A, B and C on CUDA tensors, a
+cascade train step on the card against the same step on the CPU, and two
+cascade steps from one state giving the same parameters bit for bit.
 
 Needs a CUDA device and nvcc, so every test carries the `cuda` marker and
 skips without a card. Imports no JAX (run on the card with --noconftest):
 
     python -m pytest tests/test_torch_train_cuda.py -q -m cuda --noconftest
 
-Tolerances: C' is a permutation, bit-identical. A': d flow sums in a fixed
-order other than the plain version's (two calls give the same d flow), d
-im through f32 atomics in an order that changes from run to run (many
-taps collapse onto the border pixels under a flow that reaches past it,
-or onto one pixel under converging motion): f32 within 1e-5 (d flow) and
-1e-4 (d im) of the largest magnitude; bf16 (both cast an f32 sum once)
-within one bf16 ulp of the largest magnitude. The train step: cuDNN's convs against
-the CPU's, f32 without TF32: FrameAux rtol 1e-3, gradients (the optimizer's
-first moments) within 2e-2 of each leaf's largest magnitude.
+Tolerances: C' is a permutation, bit-identical. A': d flow and d im sum
+in fixed orders other than the plain version's, so three calls give the
+same bits, and many taps collapse onto the border pixels under a flow
+that reaches past it, or onto one pixel under converging motion: f32
+within 1e-5 (d flow) and 1e-4 (d im) of the largest magnitude; bf16
+(both cast an f32 sum once) within one bf16 ulp of the largest
+magnitude. E': f32 within 1e-5 of the largest magnitude of the plain
+version (which sums in float64 and rounds once; E' sums in f32), bf16
+one bf16 ulp, float64 1e-12; two calls give the same bits. The train step: cuDNN's
+convs against the CPU's, f32 without TF32: FrameAux rtol 1e-3, gradients
+(the optimizer's first moments) within 2e-2 of each leaf's largest
+magnitude.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 
 from vcm_ts_tpu_torch.models.dmc import DMC, make_dpb
 from vcm_ts_tpu_torch.ops import cuda_build
+from vcm_ts_tpu_torch.ops import resize as rs
 from vcm_ts_tpu_torch.ops import subpel as ts
 from vcm_ts_tpu_torch.ops import warp as tw
 from vcm_ts_tpu_torch.train import train_step as tts
@@ -79,11 +84,14 @@ def _flow(kind, n, h, w, g):
 
 
 def _check_warp_bwd(ims, flow, gs, need_im=True):
-    """A' against warp_backward_plain at the tolerances above; two calls
-    give the same d flow."""
+    """A' against warp_backward_plain at the tolerances above; three calls
+    give the same d flow and d im bit for bit."""
     dflow, dims = tw.warp_backward_cuda(ims, flow, gs, need_im)
-    assert torch.equal(dflow, tw.warp_backward_cuda(ims, flow, gs,
-                                                    need_im)[0])
+    for _ in range(2):
+        again_flow, again_ims = tw.warp_backward_cuda(ims, flow, gs, need_im)
+        assert torch.equal(dflow, again_flow)
+        for d, a in zip(dims, again_ims):
+            assert (d is None and a is None) or torch.equal(d, a)
     wflow, wims = tw.warp_backward_plain(ims, flow, gs, need_im)
     assert dflow.dtype == flow.dtype and dflow.shape == flow.shape
     err = float((dflow.float() - wflow.float()).abs().max())
@@ -167,6 +175,38 @@ def test_warp_bwd_planes_stay_apart(gen, dtype, h, w):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("n,c,h,w,size", [
+    (4, 2, 16, 16, (32, 32)),      # SpyNet's flow upsampling
+    (4, 2, 64, 64, (32, 32)),      # the DMC's 0.5x resize
+    (2, 3, 100, 140, (224, 224)),  # the perceptual loss's resize
+    (2, 3, 256, 256, (224, 224)),
+    (1, 64, 37, 61, (18, 30)),
+    (2, 3, 20, 30, (224, 224)),
+])
+def test_resize_bwd_kernel_matches_plain_and_repeats(gen, dtype, n, c, h, w,
+                                                     size):
+    g = _randn((n, c) + size, gen, dtype)
+    got = rs.resize_backward_cuda(g, h, w)
+    assert got.dtype == dtype and got.shape == (n, c, h, w)
+    assert torch.equal(got, rs.resize_backward_cuda(g, h, w))
+    want = rs.resize_backward_plain(g, h, w)
+    err = float((got.double() - want.double()).abs().max())
+    tol = (1e-12 * float(want.abs().max()) if dtype == torch.float64
+           else _tol(want, dtype, 1e-5))
+    assert err <= tol, err
+    # the autograd path launches E' and gives its bits
+    x = torch.zeros((n, c, h, w), device="cuda", dtype=dtype,
+                    requires_grad=True)
+    cuda_build.reset_launches()
+    rs.bilinear_resize(x, size).backward(g)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["resize_bwd"] == 1
+    assert torch.equal(x.grad, got)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c", [64, 32, 3, 1])
 def test_space_to_depth_kernel_bit_identical_to_plain(gen, dtype, c):
@@ -211,10 +251,9 @@ def test_autograd_on_cuda_goes_through_the_kernels(gen):
         assert float((a.cpu() - b).abs().max()) <= 1e-4 * scale
 
 
-@pytest.mark.cuda
-def test_cascade_step_card_against_cpu(gen):
-    """One cascade step (p_frames 2, remat) of a seeded DMC at 64x64, the
-    same noise, on the CPU (plain versions) and on the card (kernels)."""
+def _small_cascade():
+    """A seeded damped DMC (16/16/24, 2 anchors), a 64x64 sequence of 2
+    rows and its noise, and the cascade stage (p_frames 2)."""
     model = init_params(DMC(anchor_num=2, channel_mv=16, channel_N=16,
                             channel_M=24, device="cpu"), seed=0,
                         kernel_scale=0.5)
@@ -227,6 +266,42 @@ def test_cascade_step_card_against_cpu(gen):
                         loss_rate_keys=("bpp_mv_y", "bpp_mv_z", "bpp_y",
                                         "bpp_z"), lr=1e-4,
                         perceptual_loss=False)
+    return model, seq, noises, stage
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mp", [False, True])
+def test_cascade_step_repeats_bit_for_bit(gen, mp):
+    """Two cascade steps from one state on the card, the same noise, f32
+    and bf16 compute (--mp): every parameter and Adam moment equal bit for
+    bit, without torch.use_deterministic_algorithms."""
+    model, seq, noises, stage = _small_cascade()
+    model = model.to("cuda")
+    outs = []
+    for _ in range(2):
+        m = copy.deepcopy(model)
+        opt = make_stage_optimizer(m, "all", 1e-4)
+        step = tts.make_cascade_step(
+            m, opt, stage, lambdas=[85.0, 170.0], dist_lambda=1.0,
+            pl_lambda=0.0, compute_dtype=torch.bfloat16 if mp else None)
+        xs = seq[1:].cuda()
+        step(xs, xs, make_dpb(seq[0].cuda(), 16, 24),
+             [tuple(t.cuda() for t in n) for n in noises])
+        torch.cuda.synchronize()
+        outs.append(({k: p.detach().clone() for k, p in
+                      m.named_parameters()},
+                     {k: v.clone() for k, v in opt.mu.items()}))
+    assert not torch.are_deterministic_algorithms_enabled()
+    for a, b in zip(outs[0], outs[1]):
+        differ = [k for k in a if not torch.equal(a[k], b[k])]
+        assert not differ, differ
+
+
+@pytest.mark.cuda
+def test_cascade_step_card_against_cpu(gen):
+    """One cascade step (p_frames 2, remat) of a seeded DMC at 64x64, the
+    same noise, on the CPU (plain versions) and on the card (kernels)."""
+    model, seq, noises, stage = _small_cascade()
     out = {}
     for dev in ("cpu", "cuda"):
         m = copy.deepcopy(model).to(dev)
@@ -242,7 +317,7 @@ def test_cascade_step_card_against_cpu(gen):
             launches = dict(cuda_build.LAUNCHES)
         out[dev] = (aux, {k: v.cpu() for k, v in opt.mu.items()})
     for k in ("warp", "warp_bwd", "subpel_conv1x1", "pixel_shuffle_relayout",
-              "space_to_depth"):
+              "space_to_depth", "resize_bwd"):
         assert launches[k] > 0, launches
     assert launches["warp_twopass"] == 0
     for f in tts.FrameAux._fields:

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -167,8 +168,12 @@ def test_do_train_matches_jax(tmp_path, tree, models, monkeypatch):
     jcfg = _cfg(j_cfg, tree, tmp_path / "jax")
     tcfg = _cfg(t_cfg, tree, tmp_path / "port")
     jopt = _OptStates()
-    jparams = j_do_train(
-        jcfg, jmodel, params, jdata.make_data_loader(jcfg, 0), jopt, seed=0,
+    # XLA compiles and runs JAX's steps outside the interpreter lock, so
+    # its run overlaps the port's below
+    pool = ThreadPoolExecutor(1)
+    jax_run = pool.submit(
+        j_do_train, jcfg, jmodel, params, jdata.make_data_loader(jcfg, 0),
+        jopt, seed=0,
         test_loader=jdata.make_data_loader(jcfg, 0, is_train=False),
         writer=JMetricWriter(jcfg.OUTPUT_DIR, enable_tb=False))
 
@@ -188,6 +193,8 @@ def test_do_train_matches_jax(tmp_path, tree, models, monkeypatch):
         tcfg, port, tdata.make_data_loader(tcfg, 0), None, seed=0,
         test_loader=tdata.make_data_loader(tcfg, 0, is_train=False),
         writer=MetricWriter(tcfg.OUTPUT_DIR, enable_tb=False))
+    jparams = jax_run.result()
+    pool.shutdown()
 
     want = _jsonl(tmp_path / "jax" / "metrics.jsonl")
     got = _jsonl(tmp_path / "port" / "metrics.jsonl")

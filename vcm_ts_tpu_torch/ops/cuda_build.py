@@ -23,14 +23,15 @@ import subprocess
 import threading
 
 SOURCES = ("warp", "subpel_conv1x1", "pixel_shuffle", "warp_twopass",
-           "warp_bwd", "space_to_depth")
+           "warp_bwd", "space_to_depth", "resize_bwd")
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = {"warp": 0, "subpel_conv1x1": 0, "pixel_shuffle_relayout": 0,
-            "warp_twopass": 0, "warp_bwd": 0, "space_to_depth": 0}
+            "warp_twopass": 0, "warp_bwd": 0, "space_to_depth": 0,
+            "resize_bwd": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point and argument types of each source (see the .cu files)
@@ -42,8 +43,10 @@ SIGNATURES = {
                       + [_P]),
     "warp_twopass": ("vcm_warp_twopass", [_P, _P, _I, _P] + [_I] * 7 + [_P]),
     "warp_bwd": ("vcm_warp_bwd", [ctypes.POINTER(_P)] * 3
-                 + [ctypes.POINTER(_I), _I, _P, _P] + [_I] * 6 + [_P]),
+                 + [ctypes.POINTER(_I), _I, _P, _P] + [_I] * 6
+                 + [_P, ctypes.c_longlong, _P]),
     "space_to_depth": ("vcm_space_to_depth", [_P] * 2 + [_I] * 6 + [_P]),
+    "resize_bwd": ("vcm_resize_bwd", [_P] * 2 + [_I] * 7 + [_P]),
 }
 
 _libs: dict = {}

@@ -28,7 +28,10 @@ the JAX gather exactly, including its clip rule: `jnp.clip` is
 max-then-min, whose gradient is 0.5 where the coordinate equals a bound
 (a zero flow at column 0 or W-1), where torch.clamp (and F.grid_sample)
 would give 1. So the plain backward is written out with index_add_, not
-taken from autograd through `warp_plain`.
+taken from autograd through `warp_plain`. Kernel A' is deterministic: d
+im and d flow are sums in an order fixed by the flow (outputs bucketed by
+the source tile of their top-left tap, each tile summed by one block
+without atomics), so two calls on the same inputs give the same bits.
 """
 
 from __future__ import annotations
@@ -206,11 +209,24 @@ def warp_backward_plain(ims, flow, grads, need_im: bool = True):
     return dflow.permute(0, 3, 1, 2), dims
 
 
+def warp_bwd_scratch_bytes(n: int, h: int, w: int, csum: int) -> int:
+    """Bytes of the scratch kernel A' needs when it computes d im, csum the
+    tensors' channels together (csrc/warp_bwd.cu's layout()): the sort's
+    keys and indices, its digit counts, each key's first position, the
+    16x16 tiles' plans, and the f32 slots of the lists it splits (8 N*H*W
+    / 16384 + 1 of 256 pixels x csum)."""
+    npix = n * h * w
+    tiles = n * -(-h // 16) * -(-w // 16)
+    ints = 4 * npix + 256 * -(-npix // 4096) + 14 * tiles + 1
+    ints = -(-ints // 4) * 4
+    return 4 * (ints + (8 * npix // 16384 + 1) * 256 * csum)
+
+
 def warp_backward_cuda(ims, flow, grads, need_im: bool = True):
     """Launch kernel A' on CUDA tensors (checks as warp_cuda; each grads[j]
-    shaped and typed as ims[j]). d im accumulates in f32 buffers through
-    atomics, in an order that changes from run to run, and is cast once to
-    the data's dtype; d flow is summed in a fixed order."""
+    shaped and typed as ims[j]). d im and d flow are sums in an order fixed
+    by the flow, so they repeat bit for bit; d im is written once in the
+    data's dtype."""
     n, two, h, w = flow.shape
     if two != 2 or not nhwc_dense(flow):
         raise ValueError("flow must be (N, 2, H, W) with NHWC memory")
@@ -232,10 +248,13 @@ def warp_backward_cuda(ims, flow, grads, need_im: bool = True):
     if flow.dtype not in (torch.float32, torch.bfloat16):
         flow = flow.float()
     k = len(ims)
-    dims = [torch.zeros_like(im, dtype=torch.float32,
-                             memory_format=torch.channels_last)
+    dims = [torch.empty_like(im, memory_format=torch.channels_last)
             if need_im else None for im in ims]
     dflow = torch.empty_like(flow, memory_format=torch.channels_last)
+    nscratch = (warp_bwd_scratch_bytes(n, h, w, sum(im.shape[1]
+                                                    for im in ims))
+                if need_im else 0)
+    scratch = torch.empty(nscratch, dtype=torch.uint8, device=flow.device)
     src = (ctypes.c_void_p * k)(*[im.data_ptr() for im in ims])
     grd = (ctypes.c_void_p * k)(*[g.data_ptr() for g in grads])
     dst = (ctypes.c_void_p * k)(*[d.data_ptr() if need_im else 0
@@ -244,11 +263,10 @@ def warp_backward_cuda(ims, flow, grads, need_im: bool = True):
     rc = cuda_build.launcher("warp_bwd")(
         src, grd, dst, chans, k, flow.data_ptr(), dflow.data_ptr(), n, h, w,
         code, cuda_build.dtype_code(flow), int(need_im),
+        scratch.data_ptr() if need_im else 0, nscratch,
         cuda_build.stream_ptr(flow))
     cuda_build.check(rc, "warp_bwd")
     cuda_build.count_launch("warp_bwd")
-    if need_im and dtype != torch.float32:
-        dims = [d.to(dtype) for d in dims]
     return dflow, dims
 
 

@@ -51,8 +51,9 @@ parameters are ordinary tensors (the rank's slice), so gradients,
 clipping and the Adam moments follow the slices. The gradients of whole
 parameters are equal on the model ranks in exact arithmetic (every
 activation they see is whole, and the copy's backward all-reduce makes
-each d input whole), but a card may sum them in another order on each
-rank (A''s d im adds through atomics), so the train step broadcasts them
+each d input whole), but nothing makes two ranks' kernels sum them in one
+order (their slices' layouts and the collectives' buffers differ), so the
+train step broadcasts them
 from model rank 0 (parallel/mesh.broadcast_whole_grads) and the whole
 parameters stay bit-equal over the model group. The port's split of a SubpelConv differs from JAX's
 contiguous split of its c-major dim (JAX splits the 3-feature RGB heads,

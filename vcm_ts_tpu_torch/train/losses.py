@@ -20,7 +20,9 @@ the card inside rowwise.whole_batch(), as the train step runs. Numerics
 follow the JAX package: `jnp.clip`'s gradient (0.5 where the input equals
 a bound) through torch.maximum / torch.minimum, whose gradient splits at a
 tie the same way; jax.image.resize's "nearest" is torch's "nearest-exact";
-its "bilinear" without antialias is F.interpolate's (align_corners=False).
+its "bilinear" without antialias is F.interpolate's (align_corners=False),
+whose backward runs as ops/resize.bilinear_resize's (kernel E' on the
+card: a fixed order of sums, as JAX's transposed einsum).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.layers import Conv2d
+from ..ops.resize import bilinear_resize
 from ..utils.device import resolve_device
 from ..utils.weights import PRETRAINED, load_torch_state_dict
 
@@ -174,8 +177,7 @@ def _prep(x, resize: bool):
     std = x.new_tensor(_IMAGENET_STD)[:, None, None]
     x = (jclip01(x) - mean) / std
     if resize:
-        x = F.interpolate(x, size=(224, 224), mode="bilinear",
-                          align_corners=False, antialias=False)
+        x = bilinear_resize(x, (224, 224))
     return x
 
 
