@@ -61,7 +61,8 @@ result line):
    bit; A''s time split into its bucket sort and its accumulate passes
    beside its d flow pass alone; E' at SpyNet's flow upsampling, the
    DMC's 0.5x motion resizes and the perceptual loss's resize to 224, two
-   calls bit-equal) and one 1088x1920 row of A' and C', beside the
+   calls bit-equal; beside them the launch floor, an empty kernel replayed
+   from a CUDA graph) and one 1088x1920 row of A' and C', beside the
    library call (grid_sampler_2d_backward; pixel_unshuffle + the channel
    permutation; upsample_bilinear2d_backward) and the cuBLAS products of
    kernel B's backward; a 64x64 cascade step of the seeded DMC on the CPU
@@ -179,6 +180,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import hashlib
 import json
 import os
 import shutil
@@ -1675,7 +1677,9 @@ def check_resize_bwd(g):
     ulp in bf16; two calls give
     the same bits; beside aten's upsample_bilinear2d_backward (PyTorch's
     atomic backward of F.interpolate) and the bound (g read once, d x
-    written once)."""
+    written once). Each row keeps a digest of d x's bytes (dx_sha256), so
+    that this function run in another tree (a copy of this script there)
+    shows whether that tree's E' gives the same bits."""
     from vcm_ts_tpu_torch.ops import resize as rs
 
     rows = []
@@ -1703,8 +1707,54 @@ def check_resize_bwd(g):
             rows.append(dict(name="resize_bwd", shape=label, dtype=dt,
                              max_abs_err=err, tol=tol, **t,
                              library="aten.upsample_bilinear2d_backward",
-                             bound_ms=b, bound_by=by))
+                             bound_ms=b, bound_by=by,
+                             dx_sha256=hashlib.sha256(
+                                 got.permute(0, 2, 3, 1).contiguous().cpu()
+                                 .view(torch.uint8).numpy().tobytes())
+                             .hexdigest()))
     return rows
+
+
+# The launch floor: an empty kernel, built beside the kernels with their
+# nvcc flags. It is on no path of the port and replaces no TPU kernel.
+LAUNCH_FLOOR_CU = r"""
+__global__ void empty_kernel() {}
+
+extern "C" int vcm_launch_floor(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def launch_floor_ms():
+    """LAUNCH_FLOOR_CU's empty kernel replayed from a CUDA graph as
+    graph_ms replays the kernels: one block of 32 threads, and 512 blocks
+    of 256 (E''s largest grid at the step's shapes)."""
+    import ctypes
+
+    from vcm_ts_tpu_torch.ops import cuda_build
+
+    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
+    src = os.path.join(cuda_build.BUILD_DIR, "launch_floor.cu")
+    lib = os.path.join(cuda_build.BUILD_DIR, "liblaunch_floor.so")
+    with open(src, "w") as f:
+        f.write(LAUNCH_FLOOR_CU)
+    subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", lib,
+                    src], check=True, capture_output=True, timeout=600)
+    fn = ctypes.CDLL(lib).vcm_launch_floor
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def empty(blocks, threads):
+        def run():
+            cuda_build.check(fn(blocks, threads,
+                                torch.cuda.current_stream().cuda_stream),
+                             "launch_floor")
+        return run
+
+    return {"one_block_ms": graph_ms(empty(1, 32)),
+            "grid_512x256_ms": graph_ms(empty(512, 256))}
 
 
 def check_space_to_depth(g):
@@ -3894,7 +3944,8 @@ def say_rows(rows):
                       f"{r['dflow_only_ms']:.4f} ms; two calls: same d flow "
                       f"and d im {r['dim_repeats']}")
         if r["name"] == "resize_bwd":
-            extra += " two calls: same bits True"
+            extra += (f" two calls: same bits True; graph ms / aten's "
+                      f"{r['ms'] / r['library_ms']:.2f}")
         if "b_bwd_dx_ms" in r:
             extra += (f" kernel B backward cuBLAS f32 dx "
                       f"{r['b_bwd_dx_ms']:.4f} ms dw {r['b_bwd_dw_ms']:.4f}"
@@ -4023,6 +4074,10 @@ def main():
     train_rows = (check_warp_bwd(g) + check_space_to_depth(g)
                   + check_resize_bwd(g))
     say_rows(train_rows)
+    floor = launch_floor_ms()
+    say(f"[kernel] launch floor: an empty kernel replayed from a CUDA "
+        f"graph {floor['one_block_ms']:.4f} ms (1 block of 32 threads), "
+        f"{floor['grid_512x256_ms']:.4f} ms (512 blocks of 256) ({smi})")
     say(f"[train] kernels A', C' and E' checked ({smi})")
     train = run_train(smi)
     rows += train_rows
@@ -4079,6 +4134,7 @@ def main():
                                        if k != "rows"},
                    "spatial": {k: v for k, v in spatial.items()
                                if k != "rows"},
+                   "launch_floor": floor,
                    "phase_s": phase_s, "kernels": kernels}, f,
                   indent=1, default=float)
     say(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s "

@@ -184,6 +184,18 @@ def test_warp_bwd_planes_stay_apart(gen, dtype, h, w):
     (2, 3, 256, 256, (224, 224)),
     (1, 64, 37, 61, (18, 30)),
     (2, 3, 20, 30, (224, 224)),
+    # the tap tables' edges: one input row or column, non-integer scales
+    # each way, C = 1, 3 and 64, N = 1, tiles whose edges fall
+    # mid-window, and an upscale whose tables take over 48 KB of shared
+    # memory
+    (2, 2, 1, 9, (4, 18)),
+    (1, 3, 7, 1, (14, 5)),
+    (1, 3, 3, 5, (7, 11)),
+    (1, 3, 256, 256, (224, 224)),
+    (2, 1, 20, 24, (40, 48)),
+    (1, 64, 9, 7, (18, 14)),
+    (1, 2, 45, 70, (90, 140)),
+    (1, 3, 1, 1, (2000, 3)),
 ])
 def test_resize_bwd_kernel_matches_plain_and_repeats(gen, dtype, n, c, h, w,
                                                      size):
@@ -204,6 +216,27 @@ def test_resize_bwd_kernel_matches_plain_and_repeats(gen, dtype, n, c, h, w,
     torch.cuda.synchronize()
     assert cuda_build.LAUNCHES["resize_bwd"] == 1
     assert torch.equal(x.grad, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rows", [(torch.float32, 8299),
+                                        (torch.bfloat16, 8299),
+                                        (torch.float64, 7261)])
+def test_resize_bwd_kernel_refuses_past_shared_memory(gen, dtype, rows):
+    """The largest upscale whose one-pixel tile fits in 227 KB of shared
+    memory (resize_backward_cuda's docstring: 1x1 -> rows x 3) matches the
+    plain version; one output row more raises, with no fallback."""
+    g = _randn((1, 3, rows, 3), gen, dtype)
+    got = rs.resize_backward_cuda(g, 1, 1)
+    assert torch.equal(got, rs.resize_backward_cuda(g, 1, 1))
+    want = rs.resize_backward_plain(g, 1, 1)
+    err = float((got.double() - want.double()).abs().max())
+    tol = (1e-12 * float(want.abs().max()) if dtype == torch.float64
+           else _tol(want, dtype, 1e-5))
+    assert err <= tol, err
+    past = _randn((1, 3, rows + 1, 3), gen, dtype)
+    with pytest.raises(RuntimeError, match="resize_bwd failed to launch"):
+        rs.resize_backward_cuda(past, 1, 1)
 
 
 @pytest.mark.cuda
