@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: kernels, bench, GOPs,
 serving, the VCM pipeline, training, the eval harness and the training
 loop, the perceptual losses and the Faster-RCNN eval detector,
-multi-process training and serving, tensor parallelism, and the engines'
-spatial mode.
+multi-process training and serving, tensor parallelism, the engines'
+spatial mode, and the detector and OCR trainers.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -167,7 +167,23 @@ result line):
    and whether the streams equal the unsharded ones is printed. Wall per
    call against the unsharded engine, collectives per call, launches per
    rank (host-staged gloo: no NCCL or multi-GPU figure). The ranks'
-   launches join the kernels line.
+   launches join the kernels line;
+15. detector training (vcm_ts_tpu_torch/train_plate_ocr.py,
+   train_plate_detector.py, train_face_detector.py; no hand-written
+   kernel on this path): each trainer's step at its published size (OCR
+   batch 64 at width 160, YOLOv8-n batch 8 at 320x320, P/R/O-Net 32 crops
+   each), TF32 off: 30 steps on one fixed batch must halve the loss; two
+   steps from one state with the same batch give the same parameters,
+   buffers and Adam moments bit for bit; torch.use_deterministic_
+   algorithms(True, warn_only=True) flags no op of a step; over a
+   synthesise-and-step loop under the profiler, wall ms per step, device
+   busy ms and launches per step, host synthesis ms per batch and the
+   device's idle share; the card CTC (the
+   forward-backward route of train/ctc.py) against its plain version on
+   the card in loss and d logits; each trained model exported
+   to a temporary directory, loaded back bit-equal through the port's
+   loaders, and run through build_lp_adapter, build_face_adapter and the
+   OCR on a synthesised scene.
 
 Each phase's seconds are printed as it ends ([phase N ...] lines) and
 kept in chip_smoke.json ("phase_s"). The last three lines of standard output are the `kernels` JSON object, the
@@ -3918,6 +3934,285 @@ def run_spatial(smi, g):
     return out
 
 
+# ----------------------------------------------------------------- phase 15
+DET_STEPS = 30  # the overfit gate's steps on one fixed batch
+DET_LOOP = 6  # steps of the timed loop, each on a freshly drawn batch
+CTC_TOL = 1e-4  # card CTC against its plain version, of the largest value
+
+
+def _det_trainers():
+    """{name: (build, draw)} for the three trainers at their published
+    sizes: build() -> (module, optimizer, step, owner) from the trainer's
+    seeded init and optimizer; draw(rng) -> one host batch."""
+    from vcm_ts_tpu_torch import train_face_detector as tfd
+    from vcm_ts_tpu_torch import train_plate_detector as tpd
+    from vcm_ts_tpu_torch import train_plate_ocr as tpo
+    from vcm_ts_tpu_torch.eval.mtcnn_native import MTCNNNativeDetector
+    from vcm_ts_tpu_torch.eval.ocr_native import PlateOCRNative
+
+    def ocr():
+        owner = PlateOCRNative.init_random(0, "cuda")
+        model = tpo.freeze_input_bias(owner.model).train()
+        opt = tpo.make_optimizer(model, 1e-3)
+        return model, opt, tpo.make_step(model, opt), owner
+
+    def plate():
+        det = tpd.make_model(0, "cuda")
+        opt = tpd.make_optimizer(det, 2e-3, DET_STEPS)
+        return det, opt, tpd.make_step(det, opt), det
+
+    def face(net_name, det=None):
+        def build():
+            owner = det or MTCNNNativeDetector(device="cuda").init(0)
+            net = getattr(owner, net_name)
+            opt = tfd.make_optimizer(net, 1e-3)
+            return net, opt, tfd.make_step(net, opt), owner
+        return build
+
+    def face_draw(size):
+        return lambda rng: tfd.pad_batch(*tfd.sample_crops(rng, 4, size),
+                                         32)
+
+    return {"plate_ocr": (ocr, lambda rng: tpo.make_batch(
+                64, rng, tpo.WIDTH_BUCKETS[-1])[:3]),
+            "plate_detector": (plate, lambda rng: tpd.make_batch(8, rng)[:2]),
+            **{f"face_{n}": (face(n), face_draw(s))
+               for n, s in tfd.CROP_SIZES.items()}}, face
+
+
+def _det_state(module, opt):
+    """Every parameter and buffer, and the Adam moments, as host copies."""
+    out = {f"param {k}": v.detach().cpu().clone()
+           for k, v in module.state_dict().items()}
+    for kind in ("mu", "nu"):
+        out.update({f"{kind} {k}": v.detach().cpu().clone()
+                    for k, v in getattr(opt, kind).items()})
+    return out
+
+
+def _flagged(fn):
+    """The messages torch.use_deterministic_algorithms(True, warn_only=
+    True) raises as warnings while fn() runs (ops with no deterministic
+    CUDA path, or cuBLAS without a fixed workspace)."""
+    import warnings
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message)[:160] for w in caught
+                   if "determinis" in str(w.message)
+                   or "CUBLAS_WORKSPACE_CONFIG" in str(w.message)})
+
+
+def check_ctc(seed=0):
+    """The card CTC route (train/ctc.ctc_loss on a CUDA tensor: the
+    forward-backward recursions) against its plain version on the card,
+    on the OCR trainer's published batch: loss and d logits, two calls
+    bit-equal, no op flagged."""
+    from vcm_ts_tpu_torch import train_plate_ocr as tpo
+    from vcm_ts_tpu_torch.eval.ocr_native import PlateOCRNative
+    from vcm_ts_tpu_torch.train import ctc
+
+    images, labels, pad, _ = tpo.make_batch(
+        64, np.random.default_rng(seed), tpo.WIDTH_BUCKETS[-1])
+    model = PlateOCRNative.init_random(0, "cuda").model
+    with torch.no_grad():
+        logits = model(torch.from_numpy(images).cuda()[:, None])
+
+    def run(fn):
+        x = logits.clone().requires_grad_(True)
+        loss = fn(x, labels, pad)
+        (gx,) = torch.autograd.grad(loss.sum(), x)
+        return loss.detach(), gx
+
+    (lc, gc), (lp, gp) = run(ctc.ctc_loss), run(ctc.ctc_loss_plain)
+    out = {"shape": list(logits.shape),
+           "loss_err": float((lc - lp).abs().max() / lp.abs().max()),
+           "grad_err": float((gc - gp).abs().max() / gp.abs().max()),
+           "repeat": bool(torch.equal(run(ctc.ctc_loss)[1], gc)),
+           "card_ms": cuda_ms(lambda: run(ctc.ctc_loss), 5, 1),
+           "plain_ms": cuda_ms(lambda: run(ctc.ctc_loss_plain), 3, 1),
+           "flagged": _flagged(lambda: run(ctc.ctc_loss))}
+    if not (out["loss_err"] <= CTC_TOL and out["grad_err"] <= CTC_TOL
+            and out["repeat"] and not out["flagged"]):
+        raise AssertionError(f"card CTC against its plain version: {out}")
+    return out
+
+
+def _det_frame(seed=5):
+    """A 320x320 plate scene (uint8) and its plate boxes."""
+    from vcm_ts_tpu_torch import train_plate_detector as tpd
+
+    rng = np.random.default_rng(seed)
+    for _ in range(20):
+        img, boxes = tpd.compose_scene(rng)
+        if len(boxes):
+            return img.astype(np.uint8), boxes
+    raise AssertionError("no plate scene with a plate in 20 draws")
+
+
+def check_detector_exports(owners, root):
+    """Export each trained model, load it back through the port's loaders
+    (parameters bit-equal) and run it through the VCM adapters and the
+    OCR on a synthesised frame."""
+    from vcm_ts_tpu_torch import train_face_detector as tfd
+    from vcm_ts_tpu_torch import train_plate_detector as tpd
+    from vcm_ts_tpu_torch.eval.mtcnn_native import (MTCNNNativeDetector,
+                                                    build_face_adapter)
+    from vcm_ts_tpu_torch.eval.ocr_native import PlateOCRNative
+    from vcm_ts_tpu_torch.eval.yolo_native import (YOLOv8NativeDetector,
+                                                   build_lp_adapter)
+
+    frame, boxes = _det_frame()
+    paths = {k: os.path.join(root, k + ".npz")
+             for k in ("plate_ocr", "yolov8-lp", "mtcnn")}
+    owners["plate_ocr"].save(paths["plate_ocr"])
+    tpd.export_npz(owners["plate_detector"], paths["yolov8-lp"])
+    tfd.export_npz(owners["face"], paths["mtcnn"])
+    loaded = {"plate_ocr": PlateOCRNative.load(paths["plate_ocr"],
+                                               "cuda").model,
+              "yolov8-lp": YOLOv8NativeDetector.load(paths["yolov8-lp"],
+                                                     device="cuda"),
+              "mtcnn": MTCNNNativeDetector.load(paths["mtcnn"], "cuda")}
+    trained = {"plate_ocr": owners["plate_ocr"].model,
+               "yolov8-lp": owners["plate_detector"],
+               "mtcnn": owners["face"]}
+    out = {}
+    for k, model in trained.items():
+        a, b = model.state_dict(), loaded[k].state_dict()
+        out[k] = {"tensors": len(a), "differ": [
+            n for n in a if not torch.equal(a[n].cpu(), b[n].cpu())]}
+        if set(a) != set(b) or out[k]["differ"]:
+            raise AssertionError(f"{k}: exported weights load back "
+                                 f"otherwise: {out[k]}")
+    lp_boxes, lp_scores = build_lp_adapter(paths["yolov8-lp"],
+                                           device="cuda")(frame)
+    face_boxes, face_scores = build_face_adapter(paths["mtcnn"],
+                                                 "cuda")(frame)
+    texts = PlateOCRNative.load(paths["plate_ocr"], "cuda")(
+        frame.astype(np.float32) / 255.0, boxes)
+    for name, (bx, sc) in (("lp", (lp_boxes, lp_scores)),
+                           ("face", (face_boxes, face_scores))):
+        if not (bx.shape[1:] == (4,) and len(bx) == len(sc)
+                and np.isfinite(bx).all() and np.isfinite(sc).all()):
+            raise AssertionError(f"{name} adapter output {bx.shape} "
+                                 f"{sc.shape}")
+    if len(texts) != len(boxes) or not all(
+            isinstance(t, str) for t in texts):
+        raise AssertionError(f"OCR on the exported weights: {texts}")
+    out["adapters"] = {"lp_boxes": len(lp_boxes),
+                       "face_boxes": len(face_boxes), "plates": len(boxes),
+                       "texts": texts}
+    for p in paths.values():
+        out[os.path.basename(p) + "_bytes"] = os.path.getsize(p)
+    return out
+
+
+def run_detector_training(smi):
+    """Phase 15: each trainer's step on the card at its published size:
+    the overfit gate, the repeat gate, the determinism check, timings;
+    the card CTC against its plain version; the export gate."""
+    import tempfile
+
+    from vcm_ts_tpu_torch.train.detector_steps import RunClock
+
+    trainers, face = _det_trainers()
+    face_det = None
+    owners, rows = {}, {}
+    for name, (fresh, draw) in trainers.items():
+        build = fresh
+        if name.startswith("face_"):
+            # the face trainer's nets train in turn inside one detector
+            build = face(name[len("face_"):], face_det)
+        row = {}
+        t = time.perf_counter()
+        batch = draw(np.random.default_rng(1))
+        row["synth_first_ms"] = (time.perf_counter() - t) * 1e3
+        module, opt, step, owner = build()
+        if name.startswith("face_"):
+            face_det = owner
+        losses = [float(step(*batch)) for _ in range(DET_STEPS)]
+        row["loss_first"], row["loss_last"] = losses[0], losses[-1]
+        if not (np.isfinite(losses).all()
+                and losses[-1] < 0.5 * losses[0]):
+            raise AssertionError(f"{name}: {DET_STEPS} steps on one batch "
+                                 f"did not halve the loss: {losses}")
+        owners[name] = owner
+        # repeat gate: two steps from one state, the same batch
+        states = []
+        for _ in range(2):
+            m2, o2, s2, _ = fresh()
+            for _ in range(2):
+                s2(*batch)
+            torch.cuda.synchronize()
+            states.append(_det_state(m2, o2))
+        a, b = states
+        row["repeat_tensors"] = len(a)
+        row["repeat_differ"] = [k for k in a if not torch.equal(a[k], b[k])]
+        if row["repeat_differ"]:
+            raise AssertionError(f"{name}: two steps from one state differ "
+                                 f"in {row['repeat_differ'][:6]}")
+        s3 = fresh()[2]
+        row["flagged"] = _flagged(lambda: s3(*batch))
+        if row["flagged"]:
+            raise AssertionError(f"{name}: torch.use_deterministic_"
+                                 f"algorithms flags {row['flagged']}")
+        # timed loop: a freshly drawn batch each step, as the trainer runs
+        clock = RunClock(torch.device("cuda"))
+        rng = np.random.default_rng(2)
+
+        def loop():
+            for _ in range(DET_LOOP):
+                clock.synth_start()
+                nb = draw(rng)
+                clock.synth_end()
+                clock.step(s3, *nb)
+
+        prof = profile_ms(loop)
+        row.update(clock.record())
+        row.update(busy_ms_per_step=prof["device_busy_ms"] / DET_LOOP,
+                   launches_per_step=prof["launches"] / DET_LOOP,
+                   idle_share=prof["idle_share"],
+                   top_kernels=prof["top_kernels"][:3])
+        rows[name] = row
+        say(f"[detector training] {name}: overfit {DET_STEPS} steps on one "
+            f"batch {row['loss_first']:.4f} -> {row['loss_last']:.4f}; two "
+            f"steps from one state bit-equal in all {row['repeat_tensors']} "
+            f"tensors (parameters, buffers, Adam moments); "
+            f"use_deterministic_algorithms flags none; over {DET_LOOP} "
+            f"synthesise-and-step iterations under the profiler: step wall "
+            f"{row['step_wall_ms']:.2f} ms (device busy "
+            f"{row['busy_ms_per_step']:.2f} ms in "
+            f"{row['launches_per_step']:.0f} launches, span "
+            f"{row['step_span_ms']:.2f} ms), host synthesis "
+            f"{row['synth_ms_per_batch']:.1f} ms a batch, device idle share "
+            f"{row['idle_share']:.3f} ({smi})")
+    owners["face"] = face_det
+    ctc_row = check_ctc()
+    say(f"[detector training] CTC on the card (the forward-backward "
+        f"route) against its plain version at {ctc_row['shape']}: loss err "
+        f"{ctc_row['loss_err']:.3g}, d logits err {ctc_row['grad_err']:.3g}"
+        f" (of the largest; tol {CTC_TOL:g}); two calls bit-equal; flags "
+        f"none; loss + backward {ctc_row['card_ms']:.3f} ms against the "
+        f"plain recursion's {ctc_row['plain_ms']:.3f} ms ({smi})")
+    with tempfile.TemporaryDirectory() as root:
+        exports = check_detector_exports(owners, root)
+    counts = ", ".join(f"{k} {exports[k]['tensors']} tensors"
+                       for k in ("plate_ocr", "yolov8-lp", "mtcnn"))
+    say(f"[detector training] exports load back bit-equal ({counts}); "
+        f"on a 320x320 plate scene the LP adapter gave "
+        f"{exports['adapters']['lp_boxes']} boxes, the face adapter "
+        f"{exports['adapters']['face_boxes']}, the OCR "
+        f"{exports['adapters']['texts']} for "
+        f"{exports['adapters']['plates']} plates")
+    return {"trainers": rows, "ctc": ctc_row, "exports": exports}
+
+
 def _g3(xs):
     return "[" + ", ".join(f"{x:.3g}" for x in xs) + "]"
 
@@ -4099,6 +4394,8 @@ def main():
     spatial = run_spatial(smi, g)
     rows += spatial["rows"]
     phase_done("14 spatial")
+    detectors = run_detector_training(smi)
+    phase_done("15 detector training")
 
     # one entry per kernel: its first (main-path) shape, and its launches
     # summed over the main paths: the two GOPs, the two batched serving
@@ -4134,6 +4431,7 @@ def main():
                                        if k != "rows"},
                    "spatial": {k: v for k, v in spatial.items()
                                if k != "rows"},
+                   "detector_training": detectors,
                    "launch_floor": floor,
                    "phase_s": phase_s, "kernels": kernels}, f,
                   indent=1, default=float)

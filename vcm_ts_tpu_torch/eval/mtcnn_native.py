@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from ..ops.cv_resize import crop_resize_area, resize_area
 from ..utils.device import resolve_device
-from ..utils.weights import mtcnn_state_dicts
+from ..utils.weights import flax_default_init, mtcnn_state_dicts
 
 THRESHOLDS = (0.6, 0.7, 0.7)
 FACTOR = 0.709
@@ -206,6 +206,12 @@ class MTCNNNativeDetector(nn.Module):
         self.pnet, self.rnet, self.onet = PNet(), RNet(), ONet()
         self.device = resolve_device(device)
         self.to(self.device).eval()
+
+    def init(self, seed: int = 0) -> "MTCNNNativeDetector":
+        """flax's default init of the three nets (the JAX package's init;
+        PReLU slopes 0.25), drawn from `seed`; returns self."""
+        flax_default_init(self, seed)
+        return self
 
     @classmethod
     def load(cls, npz_path: str, device="cuda", **kw):

@@ -11,7 +11,9 @@ bucket).
 
 The shipped weights (pretrained/plate_ocr.npz) are a flax tree, mapped
 onto this module by utils/weights.ocr_state_dict (each BiLSTM is one
-bidirectional nn.LSTM). The CTC training path is not ported.
+bidirectional nn.LSTM); `save` writes that tree back
+(utils/weights.ocr_npz_arrays) and `init_random` draws flax's default
+init. The CTC trainer is vcm_ts_tpu_torch/train_plate_ocr.py.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import torch.nn.functional as F
 
 from ..ops.cv_resize import resize_cubic_u8
 from ..utils.device import resolve_device
-from ..utils.weights import ocr_state_dict
+from ..utils.weights import (flax_default_init, ocr_npz_arrays,
+                             ocr_state_dict, save_npz)
 
 CHARSET = "0123456789ABCDEFGHIJKLMNOPQRSTUVWXYZ"
 NUM_CLASSES = len(CHARSET) + 1  # + blank at index 0
@@ -121,6 +124,18 @@ class PlateOCRNative:
         model = PlateRecognizer()
         model.load_state_dict(ocr_state_dict(npz_path, CHARSET), strict=True)
         return cls(model, device)
+
+    @classmethod
+    def init_random(cls, seed: int = 0, device="cuda") -> "PlateOCRNative":
+        """flax's default init of the recognizer (the JAX package's
+        init_random), drawn from `seed` with a torch.Generator."""
+        return cls(flax_default_init(PlateRecognizer(), seed), device)
+
+    def save(self, npz_path: str) -> None:
+        """The flax-tree .npz that this class's and the JAX package's
+        load() read."""
+        save_npz(npz_path, ocr_npz_arrays(self.model.state_dict()),
+                 {"charset": CHARSET})
 
     @torch.no_grad()
     def logits(self, batch: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,7 @@ from ..codec.bitstream import get_padding_size
 from ..ops.cv_resize import resize_linear_u8
 from ..train.yolo_v8 import ConvBnSiLU, YOLOv8Backbone
 from ..utils.device import resolve_device
-from ..utils.weights import yolo_state_dicts
+from ..utils.weights import flax_default_init, yolo_state_dicts
 
 STRIDES = (8, 16, 32)
 
@@ -128,6 +128,12 @@ class YOLOv8NativeDetector(nn.Module):
         self.head = YOLOv8Detect(self.backbone.out_channels, nc, reg_max)
         self.device = resolve_device(device)
         self.to(self.device).eval()
+
+    def init(self, seed: int = 0) -> "YOLOv8NativeDetector":
+        """flax's default init of backbone and head (the JAX package's
+        init), drawn from `seed`; returns self."""
+        flax_default_init(self, seed)
+        return self
 
     @classmethod
     def load(cls, npz_path: str, imgsz: int | None = None, device="cuda"):

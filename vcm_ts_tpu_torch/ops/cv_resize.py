@@ -26,6 +26,7 @@ a few pixels may differ by one level from cv2.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -154,9 +155,11 @@ def _cubic_coeffs(x: float) -> np.ndarray:
     return np.array([c0, c1, c2, 1 - c0 - c1 - c2], np.float32)
 
 
+@functools.lru_cache(maxsize=1024)
 def _cubic_taps(ssize: int, dsize: int):
     """(dsize, 4) replicate-clamped indexes and 11-bit int32 weights
-    (cv::resize, INTER_CUBIC)."""
+    (cv::resize, INTER_CUBIC). Cached per size pair (the OCR trainer
+    resizes thousands of crops a batch): read-only."""
     scale = 1.0 / (dsize / ssize)
     idx = np.zeros((dsize, 4), np.int64)
     wts = np.zeros((dsize, 4), np.int32)

@@ -12,7 +12,9 @@ NCHW modules with torchvision's key names: the "backbone.body.*" and
 pretrained/fasterrcnn_resnet50_fpn_v2_coco-dd69338a.pth load with
 strict=True once "backbone." is stripped. BatchNorm is frozen (eval-mode,
 all four tensors buffers); the networks never train: they are frozen and
-their gradient reaches only their input, the decoded frame.
+their gradient reaches only their input, the decoded frame. The detector
+trainer alone turns a model's BatchNorm tensors into parameters
+(`train_batch_norm_tensors`).
 
 The convs go through ops/rowwise.conv2d: row by row on the CPU (oneDNN's
 conv backward at batch > 1 corrupts the heap there), the whole batch on
@@ -67,6 +69,21 @@ class FrozenBatchNorm(nn.Module):
         inv = self.weight * torch.rsqrt(self.running_var + self.eps)
         shift = self.bias - self.running_mean * inv
         return x * inv[:, None, None] + shift[:, None, None]
+
+
+def train_batch_norm_tensors(model: nn.Module) -> nn.Module:
+    """Make every FrozenBatchNorm's four tensors parameters of `model`, in
+    place: the JAX package declares them flax params (train/losses.py
+    FrozenBatchNorm), and its detector trainer differentiates and decays
+    all four (tools/train_plate_detector.py). Names, values and the
+    forward stay as they were; only a trainer's own copy of a model is
+    passed here. Returns model."""
+    for m in model.modules():
+        if isinstance(m, FrozenBatchNorm):
+            for name in ("weight", "bias", "running_mean", "running_var"):
+                m.register_parameter(name, nn.Parameter(
+                    m._buffers.pop(name)))
+    return model
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> Conv2d:

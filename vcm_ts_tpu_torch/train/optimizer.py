@@ -94,6 +94,8 @@ class StageOptimizer:
     """Masked AdamW (optax's formulas) over a model's parameters, updated
     in place from a {name: gradient} dict."""
 
+    b1, b2, eps, weight_decay = B1, B2, EPS, WEIGHT_DECAY
+
     def __init__(self, model: nn.Module, mask: dict, lr: float,
                  grad_clip_norm: float = 0.0):
         self.params = {n: p for n, p in model.named_parameters()
@@ -175,8 +177,8 @@ class StageOptimizer:
         self.count += 1
         t = self.count
         # optax's bias corrections, computed in f32 as it computes them
-        c1 = float(np.float32(1.0) - np.float32(B1) ** np.float32(t))
-        c2 = float(np.float32(1.0) - np.float32(B2) ** np.float32(t))
+        c1 = float(np.float32(1.0) - np.float32(self.b1) ** np.float32(t))
+        c2 = float(np.float32(1.0) - np.float32(self.b2) ** np.float32(t))
         mu, nu = list(self.mu.values()), list(self.nu.values())
         kinds = [_is_dtensor(p) for p in ps]
         for kind in sorted(set(kinds)):
@@ -185,20 +187,70 @@ class StageOptimizer:
                         c1, c2)
 
     def _adamw(self, ps, gs, mu, nu, c1, c2) -> None:
-        torch._foreach_mul_(mu, B1)
-        torch._foreach_add_(mu, torch._foreach_mul(gs, 1.0 - B1))
+        b1, b2 = self.b1, self.b2
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, torch._foreach_mul(gs, 1.0 - b1))
         g2 = torch._foreach_mul(gs, gs)
-        torch._foreach_mul_(g2, 1.0 - B2)
-        torch._foreach_mul_(nu, B2)
+        torch._foreach_mul_(g2, 1.0 - b2)
+        torch._foreach_mul_(nu, b2)
         torch._foreach_add_(nu, g2)
         den = torch._foreach_div(nu, c2)
         torch._foreach_sqrt_(den)
-        torch._foreach_add_(den, EPS)
+        torch._foreach_add_(den, self.eps)
         u = torch._foreach_div(mu, c1)
         torch._foreach_div_(u, den)
-        torch._foreach_add_(u, torch._foreach_mul(ps, WEIGHT_DECAY))
+        torch._foreach_add_(u, torch._foreach_mul(ps, self.weight_decay))
         torch._foreach_mul_(u, -self.lr)
         torch._foreach_add_(ps, u)
+
+
+class AdamW(StageOptimizer):
+    """optax.chain(clip_by_global_norm(grad_clip_norm), adamw(lr,
+    weight_decay=weight_decay)) with optax's other defaults (b1 0.9, b2
+    0.999, eps 1e-8), as the detector and OCR trainers use it: over every
+    parameter of the model that requires a gradient, each decayed. `lr` is
+    a float or a schedule (optax's: the step count before the update ->
+    the rate), evaluated in float32. The codec's StageOptimizer keeps its
+    own settings (b2 0.99, weight decay 0.01)."""
+
+    b2 = 0.999
+
+    def __init__(self, model: nn.Module, lr, weight_decay: float = 1e-4,
+                 grad_clip_norm: float = 0.0):
+        super().__init__(model, {n: p.requires_grad
+                                 for n, p in model.named_parameters()},
+                         0.0, grad_clip_norm)
+        self.schedule = lr if callable(lr) else (lambda count: lr)
+        self.weight_decay = weight_decay
+
+    def step(self, grads: dict) -> None:
+        self.lr = float(np.float32(self.schedule(self.count)))
+        super().step(grads)
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
+                                 warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0):
+    """optax.warmup_cosine_decay_schedule (exponent 1): linear from
+    init_value to peak_value over warmup_steps, then cosine decay to
+    end_value at decay_steps; float32 arithmetic in optax's order."""
+    f32 = np.float32
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    cos_steps = decay_steps - warmup_steps
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            c = min(max(count, 0), warmup_steps)
+            frac = f32(1) - f32(c) / f32(warmup_steps)
+            return float(f32(init_value - peak_value) * frac
+                         + f32(peak_value))
+        c = f32(min(count - warmup_steps, cos_steps))
+        cosine = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * c
+                                             / f32(cos_steps)))
+        return float(f32(peak_value) * (f32(1 - alpha) * cosine
+                                         + f32(alpha)))
+
+    return schedule
 
 
 def _is_dtensor(t) -> bool:

@@ -23,7 +23,10 @@ torch.load(weights_only=True), `load_codec_weights` loads one into a port
 model (every parameter must be covered; stray keys are tolerated, as the
 JAX importer's strict="cover"), and the q-scale readers take the rate
 anchors from one. The detector and OCR .npz files (pretrained/) load
-through `yolo_state_dicts`, `mtcnn_state_dicts` and `ocr_state_dict`.
+through `yolo_state_dicts`, `mtcnn_state_dicts` and `ocr_state_dict`;
+`yolo_npz_arrays`, `mtcnn_npz_arrays` and `ocr_npz_arrays` are their
+inverses (the trainers' exports), and `flax_default_init` draws the JAX
+detectors' and OCR's flax default init for the trainers.
 """
 
 from __future__ import annotations
@@ -126,6 +129,51 @@ def init_params(model: nn.Module, seed: int = 0,
             for p in (m.h, m.b, m.a):
                 if p is not None:
                     normal(p, 0.01)
+    return model
+
+
+@torch.no_grad()
+def flax_default_init(model: nn.Module, seed: int = 0) -> nn.Module:
+    """The flax defaults of the JAX detectors and OCR, drawn in place with
+    a torch.Generator: conv, dense and LSTM input kernels lecun_normal
+    (truncated normal in +-2 std, std sqrt(1 / fan_in) / 0.8796), LSTM
+    recurrent kernels orthogonal per gate, biases 0, norm scales 1 (a
+    FrozenBatchNorm's mean 0 and variance 1), PReLU slopes 0.25. Returns
+    model."""
+    g = torch.Generator().manual_seed(seed)
+
+    def lecun(w, fan_in):
+        std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+        w.copy_(nn.init.trunc_normal_(torch.empty(w.shape), 0.0, std,
+                                      -2 * std, 2 * std, generator=g))
+
+    from ..train.losses import FrozenBatchNorm
+
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            lecun(m.weight, m.weight[0].numel())
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.LSTM):
+            for name, p in m.named_parameters():
+                if name.startswith("weight_ih"):
+                    for gate in p.chunk(4):
+                        lecun(gate, p.shape[1])
+                elif name.startswith("weight_hh"):
+                    for gate in p.chunk(4):
+                        gate.copy_(nn.init.orthogonal_(
+                            torch.empty(gate.shape), generator=g))
+                else:
+                    p.zero_()
+        elif isinstance(m, nn.GroupNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, nn.PReLU):
+            m.weight.fill_(0.25)
+        elif isinstance(m, FrozenBatchNorm):
+            for name, v in (("weight", 1.0), ("bias", 0.0),
+                            ("running_mean", 0.0), ("running_var", 1.0)):
+                getattr(m, name).fill_(v)
     return model
 
 
@@ -239,6 +287,74 @@ def mtcnn_state_dicts(npz_path: str) -> dict:
     return {net: {k[len(net) + 1:]: torch.from_numpy(data[k])
                   for k in data.files if k.startswith(net + ".")}
             for net in ("pnet", "rnet", "onet")}
+
+
+def _host(sd: dict) -> dict:
+    return {k: v.detach().cpu().numpy().astype(np.float32, copy=True)
+            for k, v in sd.items()}
+
+
+def yolo_npz_arrays(backbone: nn.Module, head: nn.Module) -> dict:
+    """The inverse of yolo_state_dicts, as tools/train_plate_detector.py
+    writes it: the backbone's tensors under "model.", the head's under
+    "model.22." (no constant `dfl.` kernel)."""
+    out = {f"model.{k}": v for k, v in _host(backbone.state_dict()).items()}
+    out.update({f"model.22.{k}": v
+                for k, v in _host(head.state_dict()).items()})
+    return out
+
+
+def mtcnn_npz_arrays(nets: dict) -> dict:
+    """The inverse of mtcnn_state_dicts: "<net>.<torch name>" for pnet,
+    rnet and onet (tools/train_face_detector.py's export)."""
+    return {f"{net}.{k}": v for net in ("pnet", "rnet", "onet")
+            for k, v in _host(nets[net].state_dict()).items()}
+
+
+def ocr_npz_arrays(sd: dict) -> dict:
+    """The inverse of ocr_state_dict: the PlateRecognizer state dict as
+    the flax tree's "/"-joined names (what the JAX package's
+    PlateOCRNative.save writes). bias_ih must be zero (flax's cell has
+    none; the trainer keeps it frozen there)."""
+    sd = _host(sd)
+    gates = ("i", "f", "g", "o")
+    out = {}
+    for key, v in sd.items():
+        name, leaf = key.split(".", 1)
+        if name.startswith("conv"):
+            out[f"{name}/" + ("kernel" if leaf == "weight" else "bias")] = (
+                v.transpose(2, 3, 1, 0) if leaf == "weight" else v)
+        elif name.startswith("gn"):
+            out[f"{name}/" + ("scale" if leaf == "weight" else "bias")] = v
+        elif name == "head":
+            out["head/kernel" if leaf == "weight" else "head/bias"] = (
+                v.T if leaf == "weight" else v)
+        elif name.startswith("lstm"):
+            kind, suffix = leaf.rsplit("_l0", 1)
+            cell = "OptimizedLSTMCell_" + ("1" if suffix == "_reverse"
+                                           else "0")
+            pre = f"BiLSTM_{name[len('lstm'):]}/{cell}/"
+            blocks = np.split(v, 4)
+            if kind == "bias_ih":
+                if np.any(v != 0):
+                    raise ValueError(f"{key} is not zero: the flax cell has "
+                                     "no input-side bias")
+            elif kind == "bias_hh":
+                for gname, b in zip(gates, blocks):
+                    out[pre + f"h{gname}/bias"] = b
+            else:
+                side = "i" if kind == "weight_ih" else "h"
+                for gname, w in zip(gates, blocks):
+                    out[pre + f"{side}{gname}/kernel"] = np.ascontiguousarray(
+                        w.T)
+        else:
+            raise KeyError(f"unknown OCR parameter {key}")
+    return out
+
+
+def save_npz(path: str, arrays: dict, meta: dict) -> None:
+    """np.savez of the arrays and the JSON meta record ("__meta__")."""
+    np.savez(path, __meta__=json.dumps(meta), **arrays)
 
 
 def ocr_state_dict(npz_path: str, charset: str) -> dict:
