@@ -2,7 +2,7 @@
 serving, the VCM pipeline, training, the eval harness and the training
 loop, the perceptual losses and the Faster-RCNN eval detector,
 multi-process training and serving, tensor parallelism, the engines'
-spatial mode, and the detector and OCR trainers.
+spatial mode, the detector and OCR trainers, and the JAX repo's tools.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -183,7 +183,17 @@ result line):
    the card in loss and d logits; each trained model exported
    to a temporary directory, loaded back bit-equal through the port's
    loaders, and run through build_lp_adapter, build_face_adapter and the
-   OCR on a synthesised scene.
+   OCR on a synthesised scene;
+16. the JAX repo's tools as the port's CLIs, published widths: the
+   overfit run at 256x256 over its six stages (2 iterations a stage, the
+   bf16 check; kernels A, A', B, C, C' and E' launched; launches per
+   iteration by stage), the bf16 BD gate on its .pth (4 anchors, 2
+   P-frames), the protocol run at 1080x1920 (I, P, I at one rate point,
+   real streams, every .bin decoded again by fresh codecs equal to the
+   encoder's recon; kernels A, B and C launched; launches per I- and
+   P-frame and per 96-frame rate point), the OCR domain gate (8 plates
+   a condition, the shipped weights) and the CDF-table generator (equal
+   to the shipped tables).
 
 Each phase's seconds are printed as it ends ([phase N ...] lines) and
 kept in chip_smoke.json ("phase_s"). The last three lines of standard output are the `kernels` JSON object, the
@@ -4213,6 +4223,145 @@ def run_detector_training(smi):
     return {"trainers": rows, "ctc": ctc_row, "exports": exports}
 
 
+# ----------------------------------------------------------------- phase 16
+TOOLS_ITERS = 2  # overfit iterations a stage (six stages) at 256x256
+TOOLS_FRAMES, TOOLS_GOP = 3, 2  # the 1080x1920 protocol run: I, P, I
+
+
+def run_tools(out_dir, smi):
+    """Phase 16: the JAX repo's tools through the port's CLIs on the card,
+    published widths: (a) the overfit run at 256x256, TOOLS_ITERS
+    iterations a stage over the six stages, with the bf16 check; (b) the
+    bf16 BD gate on (a)'s .pth (4 anchors, 2 P-frames, 256x256); (c) the
+    protocol run at 1080x1920 (the harness's padding path), I P I at one
+    rate point, real streams, every .bin decoded again by fresh codecs
+    and equal to the encoder's recon; (d) the OCR domain gate on the
+    shipped weights, 8 plates a condition; (e) the CDF-table generator
+    into a temporary file, equal to the shipped one. (a)-(c) read the
+    launch counts, reset just before each."""
+    import tempfile
+
+    from vcm_ts_tpu_torch import (bf16_bd_gate, gen_gaussian_tables,
+                                  ocr_domain_gate, overfit_run, protocol_run)
+    from vcm_ts_tpu_torch.ops import cuda_build
+
+    j = os.path.join
+    root = j(out_dir, "tools")
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+
+    # (a) the overfit run; do_train's record gives each epoch's (stage's)
+    # launches in its steps, eval excluded
+    cuda_build.reset_launches()
+    t = time.perf_counter()
+    rc, record, verdict = overfit_run.run(overfit_run.parse_args(
+        ["--size", "256", "--iters", str(TOOLS_ITERS), "--out",
+         j(root, "overfit"), "--bf16-check"]))
+    torch.cuda.synchronize()
+    ov = {"s": time.perf_counter() - t, "rc": rc,
+          "launches": dict(cuda_build.LAUNCHES), "verdict": verdict,
+          "epochs": [{k: e[k] for k in ("epoch", "stage", "frames",
+                                         "train_s", "eval_s",
+                                         "checkpoint_s")}
+                     for e in record["epochs"]]}
+    for e, r in zip(ov["epochs"], record["epochs"]):
+        e["launches_per_iteration"] = {k: r["launches"][k] / TOOLS_ITERS
+                                       for k in TRAIN_KERNELS}
+    missing = [k for k in TRAIN_KERNELS if not ov["launches"][k] > 0]
+    if missing:
+        raise AssertionError(f"overfit run: {missing} not launched: "
+                             f"{ov['launches']}")
+    stages = ov["verdict"]["stages"]
+    if sorted(stages) != list(range(6)) or not all(
+            np.isfinite([d["first"], d["last"]]).all()
+            for d in stages.values()):
+        raise AssertionError(f"overfit run: stages {stages}")
+    for e in ov["epochs"]:
+        say(f"[tools] overfit stage {e['stage']}: {TOOLS_ITERS} iterations "
+            f"in {e['train_s']:.3f} s ({e['train_s'] / TOOLS_ITERS * 1e3:.1f}"
+            f" ms an iteration, {e['frames'] / e['train_s']:.2f} frames/s), "
+            f"eval {e['eval_s']:.3f} s, checkpoint {e['checkpoint_s']:.3f} "
+            f"s; launches an iteration {e['launches_per_iteration']}")
+    say(f"[tools] overfit run 256x256, 6 stages: rc {rc}, verdict "
+        f"{json.dumps(ov['verdict'])} ({ov['s']:.1f} s; {smi})")
+    out["overfit"] = ov
+
+    # (b) the BD gate on (a)'s checkpoint
+    cuda_build.reset_launches()
+    t = time.perf_counter()
+    bd = {"report": bf16_bd_gate.gate(bf16_bd_gate.parse_args(
+        ["--ckpt", j(root, "overfit", "overfit_final.pth"), "--size", "256",
+         "--frames", "2"]))}
+    bd.update(s=time.perf_counter() - t, launches=dict(cuda_build.LAUNCHES))
+    rep = bd["report"]
+    missing = [k for k in ("warp", "subpel_conv1x1", "pixel_shuffle_relayout")
+               if not bd["launches"][k] > 0]
+    if missing or "bd_valid" not in rep or not (
+            np.isfinite(rep["f32_psnr"]).all()
+            and min(rep["f32_bpp"] + rep["bf16_bpp"]) > 0):
+        raise AssertionError(f"bf16 BD gate: missing {missing}: {rep}")
+    say(f"[tools] bf16 BD gate: {json.dumps(rep)} ({bd['s']:.1f} s; {smi})")
+    out["bd_gate"] = bd
+
+    # (c) the protocol run at 1080x1920; its summary gives the launches
+    # of each frame the harness codes through a .bin, by frame type
+    cuda_build.reset_launches()
+    t = time.perf_counter()
+    summary = protocol_run.main(
+        ["--out", j(root, "protocol"), "--frames", str(TOOLS_FRAMES),
+         "--gop", str(TOOLS_GOP), "--rate-num", "1", "--size", "1080x1920"])
+    pr = {"s": time.perf_counter() - t, "summary": summary,
+          "launches": dict(cuda_build.LAUNCHES)}
+    with open(j(root, "protocol", "protocol_log.json")) as f:
+        log = json.load(f)["Synthetic"]["Synthetic_1920x1080_30"]["000"]
+    missing = [k for k in ("warp", "subpel_conv1x1", "pixel_shuffle_relayout")
+               if not pr["launches"][k] > 0]
+    if (missing or summary.get("decoded_equal_frames") != TOOLS_FRAMES
+            or log["frame_type"] != [0, 1, 0]):
+        raise AssertionError(f"protocol run: missing {missing}, {summary}, "
+                             f"frame types {log['frame_type']}")
+    pr["log"] = {k: log[k] for k in ("ave_all_frame_bpp",
+                                     "ave_all_frame_psnr", "frame_type")}
+    say(f"[tools] protocol run 1920x1080 (padded to 1088), {TOOLS_FRAMES} "
+        f"frames GOP {TOOLS_GOP}, 1 rate point: {json.dumps(summary)}; bpp "
+        f"{log['ave_all_frame_bpp']:.4f}, PSNR "
+        f"{log['ave_all_frame_psnr']:.3f} dB; every .bin decoded again "
+        f"equals the encoder's recon ({pr['s']:.1f} s; {smi})")
+    say(f"[tools] protocol launches per frame coded and decoded through its "
+        f".bin: I {summary['launches_per_frame']['i']}, P "
+        f"{summary['launches_per_frame']['p']}")
+    out["protocol"] = pr
+    shutil.rmtree(root, ignore_errors=True)
+
+    # (d) the OCR domain gate on the shipped weights
+    t = time.perf_counter()
+    ocr = ocr_domain_gate.evaluate(j(ROOT, "pretrained", "plate_ocr.npz"), 8,
+                                   device="cuda")
+    conds = ("train-font-clean", "heldout-fonts", "perspective",
+             "photometric", "perspective+photometric")
+    if not all(c in ocr for c in conds):
+        raise AssertionError(f"OCR gate: {ocr}")
+    say(f"[tools] OCR domain gate (n 8): "
+        + ", ".join(f"{c} exact {ocr[c]['exact']} symbols "
+                    f"{ocr[c]['symbol_acc']}" for c in conds)
+        + f" ({time.perf_counter() - t:.1f} s; {smi})")
+    out["ocr_gate"] = ocr
+
+    # (e) the CDF-table generator
+    with tempfile.TemporaryDirectory() as tmp:
+        path = gen_gaussian_tables.main(["--out", j(tmp, "g.npz")])
+        with np.load(path) as got, np.load(gen_gaussian_tables.OUT) as want:
+            same = sorted(got.files) == sorted(want.files) and all(
+                np.array_equal(got[k], want[k]) for k in want.files)
+    if not same:
+        raise AssertionError("gen_gaussian_tables: the regenerated tables "
+                             "differ from the shipped file")
+    say("[tools] gen_gaussian_tables: regenerated tables equal the shipped "
+        "vcm_ts_tpu_torch/entropy/data/gaussian_cdf.npz")
+    out["paths"] = [ov, bd, pr]
+    return out
+
+
 def _g3(xs):
     return "[" + ", ".join(f"{x:.3g}" for x in xs) + "]"
 
@@ -4396,17 +4545,21 @@ def main():
     phase_done("14 spatial")
     detectors = run_detector_training(smi)
     phase_done("15 detector training")
+    tools = run_tools(out_dir, smi)
+    phase_done("16 tools")
 
     # one entry per kernel: its first (main-path) shape, and its launches
     # summed over the main paths: the two GOPs, the two batched serving
     # runs, the warm VCM pipeline run, one cascade train step, the eval
     # harness's sequential run, the trainer's run, one cascade step with
-    # the perceptual loss, the trainer's perceptual run, and phases 12's,
-    # 13's and 14's ranks (each read with the counts reset just before it)
+    # the perceptual loss, the trainer's perceptual run, phases 12's, 13's
+    # and 14's ranks, and phase 16's overfit run, BD gate and protocol run
+    # (each read with the counts reset just before it)
     paths = gops + serving["batch"] + [vcm, train, evaluation, loop,
                                        perceptual["step"],
                                        perceptual["loop"], parallel,
-                                       tensor_parallel, spatial]
+                                       tensor_parallel, spatial,
+                                       *tools["paths"]]
     kernels = []
     for name in ("warp", "warp_bwd", "subpel_conv1x1",
                  "pixel_shuffle_relayout", "space_to_depth", "warp_twopass",
@@ -4432,6 +4585,7 @@ def main():
                    "spatial": {k: v for k, v in spatial.items()
                                if k != "rows"},
                    "detector_training": detectors,
+                   "tools": {k: v for k, v in tools.items() if k != "paths"},
                    "launch_floor": floor,
                    "phase_s": phase_s, "kernels": kernels}, f,
                   indent=1, default=float)

@@ -22,7 +22,8 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_warp_twopass import flax_params_like
+from tests.test_torch_warp_twopass import (flax_params_like,  # noqa: F401
+                                           one_torch_thread)
 from tests.torch_port_util import moving_frames
 from vcm_ts_tpu.codec import bitstream as jbs
 from vcm_ts_tpu.codec.engine import IntraCodec as JIntraCodec

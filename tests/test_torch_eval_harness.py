@@ -28,6 +28,7 @@ import json
 import os
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -135,11 +136,23 @@ def _bins(folder):
             for i in range(FRAMES_60)]
 
 
+def _beside(fn, *args):
+    """fn(*args) in a thread (XLA compiles and runs the JAX engines outside
+    the interpreter lock, so the port's run here overlaps it); returns its
+    future."""
+    pool = ThreadPoolExecutor(1)
+    try:
+        return pool.submit(fn, *args)
+    finally:
+        pool.shutdown(wait=False)
+
+
 def test_run_test_streams_byte_identical(tmp_path, codecs, seq60, jtv):
-    j_log = jtv.run_test(codecs["jax"][1], codecs["jax"][0],
-                         _task(seq60, Q_SEQ, str(tmp_path / "jax")))
+    j_run = _beside(jtv.run_test, codecs["jax"][1], codecs["jax"][0],
+                    _task(seq60, Q_SEQ, str(tmp_path / "jax")))
     t_log = ttv.run_test(codecs["port"][1], codecs["port"][0],
                          _task(seq60, Q_SEQ, str(tmp_path / "port")))
+    j_log = j_run.result()
     jb, tb = _bins(str(tmp_path / "jax")), _bins(str(tmp_path / "port"))
     assert min(len(b) for b in tb) > 40
     for i, (a, b) in enumerate(zip(tb, jb)):
@@ -155,10 +168,11 @@ def test_run_test_streams_byte_identical(tmp_path, codecs, seq60, jtv):
 
 
 def test_run_test_entropy_estimated(codecs, seq60, jtv):
-    j_log = jtv.run_test(codecs["jax"][1], codecs["jax"][0],
-                         _task(seq60, Q_SEQ, gop=3))
+    j_run = _beside(jtv.run_test, codecs["jax"][1], codecs["jax"][0],
+                    _task(seq60, Q_SEQ, gop=3))
     t_log = ttv.run_test(codecs["port"][1], codecs["port"][0],
                          _task(seq60, Q_SEQ, gop=3))
+    j_log = j_run.result()
     assert t_log["frame_type"] == j_log["frame_type"] == [0, 1, 1, 0]
     np.testing.assert_allclose(t_log["frame_bpp"], j_log["frame_bpp"],
                                rtol=1e-3)
@@ -177,12 +191,13 @@ def test_run_test_batched(tmp_path, codecs, seq60, jtv, write_stream):
         return [_task(seq60, q, str(tmp_path / f"{tag}{r}") if write_stream
                       else None, rate_idx=r) for r, q in enumerate(qs)]
 
+    j_run = _beside(jtv.run_test_batched, codecs["jax"][1],
+                    codecs["jax"][0], tasks("jbat"))
     seq = [ttv.run_test(codecs["port"][1], codecs["port"][0], t)
            for t in tasks("seq")]
     bat = ttv.run_test_batched(codecs["port"][1], codecs["port"][0],
                                tasks("bat"))
-    jbat = jtv.run_test_batched(codecs["jax"][1], codecs["jax"][0],
-                                tasks("jbat"))
+    jbat = j_run.result()
     for r in range(len(qs)):
         for k in FRAME_KEYS:
             np.testing.assert_array_equal(bat[r][k], seq[r][k], err_msg=k)

@@ -13,7 +13,6 @@ terms rtol 1e-4, except the intra Gaussian bpp_y (see its test).
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
-from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -21,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_warp_twopass import flax_params_like
+from tests.test_torch_warp_twopass import (flax_params_like,  # noqa: F401
+                                           one_torch_thread)
 from tests.torch_port_util import moving_frames, np_tree
 from vcm_ts_tpu.models import common as j_common
 from vcm_ts_tpu.models.dmc import DMC as JDMC
@@ -68,7 +68,7 @@ def _check_scalars(got, want, keys, where):
 def test_intra_forward_matches_jax(intra):
     jmodel, params, port = intra
     x = moving_frames(0, 1)[0]
-    want = jmodel.apply(params, jnp.asarray(x), 0.5)
+    want = jax.jit(jmodel.apply)(params, jnp.asarray(x), 0.5)
     with torch.no_grad():
         got = port(torch.from_numpy(x), 0.5)
     np.testing.assert_allclose(np_tree(got["x_hat"]),
@@ -88,7 +88,8 @@ def test_intra_forward_matches_jax(intra):
                                           m.y_spatial_prior)
         return res.y_q, res.scales_hat
 
-    jq, js = jmodel.apply(params, jnp.asarray(x), method=j_planes)
+    jq, js = jax.jit(lambda p, xx: jmodel.apply(p, xx, method=j_planes))(
+        params, jnp.asarray(x))
     with torch.no_grad():
         y, z_hat = port.encode_front(torch.from_numpy(x), 0.5)
         q_step, scales, means = port._fusion_params(z_hat)
@@ -105,13 +106,13 @@ def test_dmc_forward_chain_matches_jax(dmc):
     is_first_p on the first frame only."""
     jmodel, params, port = dmc
     frames = moving_frames(1, 5)
-    fwd = jax.jit(partial(jmodel.apply, params),
-                  static_argnames=("is_first_p",))
+    # the params are an argument, not constants folded into the program
+    fwd = jax.jit(jmodel.apply, static_argnames=("is_first_p",))
 
     def jax_chain():
         outs, jdpb = [], j_make_dpb(jnp.asarray(frames[0]))
         for t, x in enumerate(frames[1:]):
-            outs.append(fwd(jnp.asarray(x), jdpb, 0.7, 0.8,
+            outs.append(fwd(params, jnp.asarray(x), jdpb, 0.7, 0.8,
                             is_first_p=t == 0))
             jdpb = outs[-1]["dpb"]
         return outs

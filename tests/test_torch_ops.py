@@ -20,7 +20,9 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_util import damp, load_flax, nchw, nhwc
+from tests.test_torch_warp_twopass import (flax_params_like,  # noqa: F401
+                                           one_torch_thread)
+from tests.torch_port_util import load_flax, nchw, nhwc
 from vcm_ts_tpu.ops import layers as jl
 from vcm_ts_tpu.ops import math as jm
 from vcm_ts_tpu.ops import resize as jr
@@ -35,6 +37,7 @@ from vcm_ts_tpu_torch.ops import math as tm
 from vcm_ts_tpu_torch.ops import resize as tr
 from vcm_ts_tpu_torch.ops import subpel as ts
 from vcm_ts_tpu_torch.ops import warp as tw
+from vcm_ts_tpu_torch.utils.weights import init_params
 
 
 def _flow(rng, n, h, w, scale):
@@ -226,13 +229,18 @@ LAYER_CASES = {
 @pytest.mark.parametrize("fast_shuffle", [False, True])
 @pytest.mark.parametrize("case", sorted(LAYER_CASES))
 def test_layers_match_jax(case, fast_shuffle):
-    """Each port module, loaded with the JAX params (damped control), equals
-    the JAX module with fast-shuffle off and on (the same function)."""
+    """Each port module, loaded with the JAX params (damped control: the
+    port's seeded init with every weight x 0.5 and biases 0.01, carried
+    into the JAX tree by `flax_params_like`; an eager flax init took most
+    of this file's time), equals the JAX module with fast-shuffle off and
+    on (the same function)."""
     jmod_f, tmod_f, shape = LAYER_CASES[case]
     rng = np.random.default_rng(len(case))
     x = rng.standard_normal(shape).astype(np.float32)
     jmod = jmod_f()
-    params = damp(jmod.init(jax.random.PRNGKey(0), jnp.asarray(x)))
+    params = flax_params_like(
+        lambda: jmod.init(jax.random.PRNGKey(0), jnp.asarray(x)),
+        init_params(tmod_f(), seed=len(case), kernel_scale=0.5))
     jl.set_fast_shuffle(fast_shuffle)
     try:
         want = np.asarray(jmod.apply(params, jnp.asarray(x)))

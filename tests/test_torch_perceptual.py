@@ -27,6 +27,7 @@ import json
 import logging
 import math
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -191,17 +192,24 @@ def test_loss_and_gradient_match_jax(nets, kind):
     check_gradient_f64(jloss, loss, port, decoded[:1], target[:1], kind)
 
 
-def check_gradient_f64(jloss, loss, port, decoded, target, name):
-    """d loss / d decoded of both stacks in float64: within 1e-3 of the
-    largest."""
+def _jax_grad_f64(jloss, decoded, target):
     with jax.enable_x64(True):
-        jg = np.asarray(jax.jit(jax.grad(lambda d, tg: jloss(d, tg).sum()))(
+        return np.asarray(jax.jit(jax.grad(lambda d, tg: jloss(d, tg).sum()))(
             jnp.asarray(decoded, jnp.float64),
             jnp.asarray(target, jnp.float64)))
+
+
+def check_gradient_f64(jloss, loss, port, decoded, target, name):
+    """d loss / d decoded of both stacks in float64: within 1e-3 of the
+    largest. XLA compiles and runs the JAX gradient outside the
+    interpreter lock, in a thread beside the port's backward."""
+    with ThreadPoolExecutor(1) as pool:
+        jax_run = pool.submit(_jax_grad_f64, jloss, decoded, target)
+        d = nchw(decoded).double().contiguous().requires_grad_()
+        loss(copy.deepcopy(port).double(), d,
+             nchw(target).double().contiguous()).sum().backward()
+        jg = jax_run.result()
     assert jg.dtype == np.float64
-    d = nchw(decoded).double().contiguous().requires_grad_()
-    loss(copy.deepcopy(port).double(), d,
-         nchw(target).double().contiguous()).sum().backward()
     _close_to_max(nhwc(d.grad), jg, 1e-3, f"{name} d decoded")
     assert float(d.grad.abs().max()) > 0
 

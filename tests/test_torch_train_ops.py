@@ -38,7 +38,8 @@ import optax
 import pytest
 import torch
 
-from tests.test_torch_train_step import LR, check_cascade, models  # noqa: F401
+from tests.test_torch_train_step import (LR, check_cascade,  # noqa: F401
+                                         models, started_cascade)
 from tests.test_torch_warp_twopass import one_torch_thread  # noqa: F401
 from tests.torch_port_util import nchw, nhwc
 from vcm_ts_tpu.ops import layers as j_layers
@@ -297,8 +298,17 @@ def test_fast_warp_refuses_a_gradient():
 
 
 # ----------------------------------------------------- accumulation, bench
-def test_cascade_grad_accum_matches_jax(models):  # noqa: F811
-    check_cascade(models, 2)
+@pytest.fixture(scope="module", autouse=True)
+def jax_cascade_accum(models):  # noqa: F811
+    """check_cascade's JAX step with accum_steps 2, traced as the module's
+    first test starts and compiled while the module's other tests run."""
+    with started_cascade(models, 2) as case:
+        yield case
+
+
+def test_cascade_grad_accum_matches_jax(models,  # noqa: F811
+                                        jax_cascade_accum):
+    check_cascade(models, jax_cascade_accum)
 
 
 # ------------------------------------------------------------------ bench

@@ -26,6 +26,7 @@ two stacks' gradients differ by up to 2 lr wherever |g| is near eps).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -150,7 +151,10 @@ def _port_loss(port, x, dpb, noise, **kw):
 
 @pytest.fixture(scope="module")
 def jax_frame_grad(models):
-    jmodel, _, _ = models
+    """JAX's frame_loss value and gradient, called as (params, x, dpb, key,
+    training). Both modes are traced here and compiled in threads (XLA
+    works outside the interpreter lock) while the tests go on."""
+    jmodel, params, _ = models
 
     def loss(p, x, dpb, key, training):
         return jts.frame_loss(
@@ -159,8 +163,16 @@ def jax_frame_grad(models):
             loss_dist_key="mse", pl_fn=pl_fn, noise_rng=key,
             is_first_p=True, training=training)
 
-    return jax.jit(jax.value_and_grad(loss, has_aux=True),
-                   static_argnums=(4,))
+    fn = jax.jit(jax.value_and_grad(loss, has_aux=True),
+                 static_argnums=(4,))
+    x = jnp.zeros((2, 64, 64, 3))
+    dpb = j_make_dpb(x, CH[1], CH[2])
+    lowered = {True: fn.lower(params, x, dpb, jax.random.PRNGKey(0), True),
+               False: fn.lower(params, x, dpb, None, False)}
+    with ThreadPoolExecutor(2) as pool:
+        compiled = {t: pool.submit(low.compile) for t, low in lowered.items()}
+        yield lambda p, x, dpb, key, training: compiled[training].result()(
+            p, x, dpb, key)
 
 
 @pytest.mark.parametrize("training", [True, False])
@@ -275,11 +287,10 @@ def _cascade_noise(key, shapes, p_frames):
     return out
 
 
-def check_cascade(models, accum):
-    """make_cascade_step with p_frames 2 (BPTT through the DPB) against
-    JAX's cascade step (remat on) with the same noise (with accum_steps G,
-    JAX's per-group key schedule): FrameAux, the last DPB, the gradients;
-    with accum_steps 1 also remat on against remat off in the port."""
+def lower_cascade(models, accum):
+    """The cascade case (p_frames 2) and JAX's cascade step (remat on;
+    with accum_steps G, its per-group key schedule), traced here; what is
+    left to run, later and in a thread, is XLA's compile and the step."""
     jmodel, params, port0 = models
     stage_kw = _stage(forward_method="cascade", p_frames=2)
     seqs = _sequences(t=3, seed=3)
@@ -290,31 +301,60 @@ def check_cascade(models, accum):
                                   lambdas=LAMBDAS, dist_lambda=1.0,
                                   pl_lambda=0.5, pl_fn=pl_fn,
                                   accum_steps=accum)
+    jargs = (tree_copy(params), tree_copy(opt_state), jnp.asarray(xs),
+             jnp.asarray(xs), j_make_dpb(jnp.asarray(seqs[:, 0]), CH[1],
+                                         CH[2]), key)
+    lowered = jstep.lower(*jargs)
+    return dict(accum=accum, stage_kw=stage_kw, seqs=seqs, xs=xs, key=key,
+                run=lambda: lowered.compile()(*jargs))
+
+
+@contextlib.contextmanager
+def started_cascade(models, accum):
+    """lower_cascade's case, its JAX step compiling and running in a
+    thread (XLA works outside the interpreter lock) while the caller goes
+    on; the case's "jax" is the step's future."""
+    case = lower_cascade(models, accum)
+    with ThreadPoolExecutor(1) as pool:
+        case["jax"] = pool.submit(case.pop("run"))
+        yield case
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_cascade(models):
+    """check_cascade's JAX step (accum 1), traced as the module's first
+    test starts and compiled while the module's other tests run."""
+    with started_cascade(models, 1) as case:
+        yield case
+
+
+def check_cascade(models, case):
+    """make_cascade_step with p_frames 2 (BPTT through the DPB) against
+    JAX's cascade step (remat on) with the same noise (with accum_steps G,
+    JAX's per-group key schedule): FrameAux, the last DPB, the gradients;
+    with accum_steps 1 also remat on against remat off in the port.
+    `case` is started_cascade's."""
+    _, _, port0 = models
+    accum, stage_kw, seqs, xs, key = (case[k] for k in (
+        "accum", "stage_kw", "seqs", "xs", "key"))
     if accum == 1:
         noises = _cascade_noise(key, port0.noise_shapes(2, 64, 64), 2)
     else:
         noises = [_cascade_noise(k, port0.noise_shapes(1, 64, 64), 2)
                   for k in jax.random.split(key, accum)]
-    # XLA compiles and runs the JAX step outside the interpreter lock, so
-    # it overlaps the port's steps here
-    with ThreadPoolExecutor(1) as pool:
-        jax_run = pool.submit(
-            jstep, tree_copy(params), tree_copy(opt_state), jnp.asarray(xs),
-            jnp.asarray(xs), j_make_dpb(jnp.asarray(seqs[:, 0]), CH[1],
-                                        CH[2]), key)
-        ran = {}
-        for remat in ((False, True) if accum == 1 else (True,)):
-            port = copy.deepcopy(port0)
-            opt = make_stage_optimizer(port, "all", LR)
-            step = ts.make_cascade_step(port, opt, StageParams(**stage_kw),
-                                        lambdas=LAMBDAS, dist_lambda=1.0,
-                                        pl_lambda=0.5, pl_fn=pl_fn,
-                                        remat=remat, accum_steps=accum)
-            aux, dpb = step(torch.from_numpy(xs), torch.from_numpy(xs),
-                            make_dpb(torch.from_numpy(seqs[:, 0]), CH[1],
-                                     CH[2]), noises)
-            ran[remat] = (port, opt, aux, dpb)
-        _, jstate, jaux, jdpb = jax_run.result()
+    ran = {}
+    for remat in ((False, True) if accum == 1 else (True,)):
+        port = copy.deepcopy(port0)
+        opt = make_stage_optimizer(port, "all", LR)
+        step = ts.make_cascade_step(port, opt, StageParams(**stage_kw),
+                                    lambdas=LAMBDAS, dist_lambda=1.0,
+                                    pl_lambda=0.5, pl_fn=pl_fn,
+                                    remat=remat, accum_steps=accum)
+        aux, dpb = step(torch.from_numpy(xs), torch.from_numpy(xs),
+                        make_dpb(torch.from_numpy(seqs[:, 0]), CH[1],
+                                 CH[2]), noises)
+        ran[remat] = (port, opt, aux, dpb)
+    _, jstate, jaux, jdpb = case["jax"].result()
     want = _jax_mu(jstate)
     results = {}
     for remat, (port, opt, aux, dpb) in ran.items():
@@ -334,8 +374,8 @@ def check_cascade(models, accum):
                                        atol=1e-7, msg=n)
 
 
-def test_cascade_step_matches_jax_and_remat(models):
-    check_cascade(models, 1)
+def test_cascade_step_matches_jax_and_remat(models, jax_cascade):
+    check_cascade(models, jax_cascade)
 
 
 def test_mixed_precision_keeps_f32_masters(models):

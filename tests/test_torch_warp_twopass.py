@@ -144,13 +144,13 @@ def test_dmc_fast_warp_matches_jax(fast_dmc, monkeypatch):
         monkeypatch.setattr(mod, name, exact_warp)
     jmodel, params, port = fast_dmc
     frames = moving_frames(4, 3)
-    fwd = jax.jit(partial(jmodel.apply, params),
-                  static_argnames=("is_first_p",))
+    # the params are an argument, not constants folded into the program
+    fwd = jax.jit(jmodel.apply, static_argnames=("is_first_p",))
     jdpb = j_make_dpb(jnp.asarray(frames[0]))
     tdpb = make_dpb(torch.from_numpy(frames[0]))
     for t, x in enumerate(frames[1:]):
         first = t == 0
-        want = fwd(jnp.asarray(x), jdpb, 0.7, 0.8, is_first_p=first)
+        want = fwd(params, jnp.asarray(x), jdpb, 0.7, 0.8, is_first_p=first)
         with torch.no_grad():
             got = port(torch.from_numpy(x), tdpb, 0.7, 0.8, is_first_p=first)
         for k in ("ref_frame", "ref_feature", "ref_y", "ref_mv_y"):

@@ -712,8 +712,9 @@ class VideoCodec(_Engine):
     def encode_decode(self, x, dpb, output_path=None, pic_width=None,
                       pic_height=None, mv_y_q_scale=None, y_q_scale=None,
                       is_first_p=False):
-        """Write-then-read round trip through the .bin container; without
-        an output path, the entropy-estimated forward."""
+        """Write-then-read round trip through the .bin container (the
+        decoded DPB, and the encoder's recon as "encoded_ref_frame");
+        without an output path, the entropy-estimated forward."""
         if output_path is None:
             out = self.forward(x, dpb, mv_y_q_scale, y_q_scale, is_first_p)
             res = {k: float(out[k]) for k in
@@ -735,6 +736,7 @@ class VideoCodec(_Engine):
             torch.cuda.synchronize(self.device)
         t2 = time.time()
         return {"dpb": decoded["dpb"], "bit": bit,
+                "encoded_ref_frame": encoded["dpb"]["ref_frame"],
                 "encoding_time": t1 - t0, "decoding_time": t2 - t1}
 
 

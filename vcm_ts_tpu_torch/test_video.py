@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import os
 import time
@@ -41,6 +42,7 @@ from .codec import bitstream as bs
 from .codec.engine import IntraCodec, VideoCodec
 from .codec.png_io import PNGReader, save_image
 from .models.dmc import make_dpb
+from .ops import cuda_build
 from .ops.msssim import ms_ssim, psnr as psnr_fn
 from .utils import weights
 from .utils.common import (create_folder, dump_json, generate_log_json,
@@ -110,12 +112,23 @@ def _metrics(x_hat, x):
     return ([float(p) for p, _ in rows], [float(m) for _, m in rows])
 
 
-def run_test(video_codec, i_codec, task, verbose=0, timers=None):
+def digest(t: torch.Tensor) -> str:
+    """sha256 of a tensor's values as f32 bytes (a recon's fingerprint)."""
+    return hashlib.sha256(
+        t.detach().float().cpu().numpy().tobytes()).hexdigest()
+
+
+def run_test(video_codec, i_codec, task, verbose=0, timers=None,
+             frames=None):
     """Per-sequence GOP loop: I-frames every gop_size frames, chained
     P-frames between; real .bin streams with task["write_stream"], else the
     entropy-estimated forward. `timers` (utils/profiling.HostTimers), if
     given, takes each frame's wall time (coding and metrics, which wait
-    for the device) under "i_frame" or "p_frame"."""
+    for the device) under "i_frame" or "p_frame". `frames`, a list, if
+    given, receives one record a frame: its type (0 I, 1 P), the digest of
+    its recon before the clamp (an I-frame's decode; a P-frame's encoder
+    recon with real streams, else the forward's) and the kernel launches
+    (ops/cuda_build.LAUNCHES) its coding took."""
     frame_num = task["frame_num"]
     gop_size = task["gop_size"]
     write_stream = task.get("write_stream", False)
@@ -146,13 +159,15 @@ def run_test(video_codec, i_codec, task, verbose=0, timers=None):
         bin_path = (os.path.join(task["bin_folder"], f"{frame_idx}.bin")
                     if write_stream else None)
         is_i = frame_idx % gop_size == 0
+        launches = dict(cuda_build.LAUNCHES)
         with (timers.track("i_frame" if is_i else "p_frame")
               if timers is not None else contextlib.nullcontext()):
             if is_i:
                 result = i_codec.encode_decode(
                     x_padded, task["i_frame_q_scale"], bin_path,
                     pic_height=pic_height, pic_width=pic_width)
-                recon = torch.clamp(result["x_hat"], 0, 1)
+                coded = result["x_hat"]
+                recon = torch.clamp(coded, 0, 1)
                 dpb = (make_dpb(recon, video_codec.model.channel_N,
                                 video_codec.model.channel_M)
                        if video_codec is not None else None)
@@ -166,6 +181,7 @@ def run_test(video_codec, i_codec, task, verbose=0, timers=None):
                     y_q_scale=task["p_frame_y_q_scale"],
                     is_first_p=is_first_p)
                 dpb = result["dpb"]
+                coded = result.get("encoded_ref_frame", dpb["ref_frame"])
                 dpb["ref_frame"] = torch.clamp(dpb["ref_frame"], 0, 1)
                 recon = dpb["ref_frame"]
                 is_first_p = False
@@ -178,6 +194,11 @@ def run_test(video_codec, i_codec, task, verbose=0, timers=None):
             p, m = _metrics(x_hat, x)
         psnrs.append(p[0])
         msssims.append(m[0])
+        if frames is not None:
+            frames.append({"type": frame_types[-1],
+                           "recon_sha256": digest(coded),
+                           "launches": {k: v - launches[k] for k, v
+                                        in cuda_build.LAUNCHES.items()}})
 
         if verbose >= 2:
             print(f"frame {frame_idx}, {time.time() - frame_start:.3f} s, "
@@ -385,11 +406,12 @@ def _ckpt_pth(path):
     return bool(path) and os.path.exists(path) and path.endswith(".pth")
 
 
-def main(argv=None, timers=None):
+def main(argv=None, timers=None, frames=None):
     """Runs the sweep and writes --output_path; returns the nested log.
     `timers`, a dict, if given, receives a utils/profiling.HostTimers per
     sequential task, keyed (dataset, sequence, rate index): each frame's
-    wall time under "i_frame" or "p_frame"."""
+    wall time under "i_frame" or "p_frame". `frames`, a dict, if given,
+    receives run_test's per-frame records under the same keys."""
     begin_time = time.time()
     args = parse_args(argv)
     if args.fleet and not args.batch_rates:
@@ -507,11 +529,13 @@ def main(argv=None, timers=None):
     else:
         for task in tasks:
             task_timers = HostTimers()
+            key = (task["ds_name"], task["video_path"], task["rate_idx"])
+            task_frames = (frames.setdefault(key, []) if frames is not None
+                            else None)
             res = run_test(video_codec, i_codec, task, verbose=args.verbose,
-                           timers=task_timers)
+                           timers=task_timers, frames=task_frames)
             if timers is not None:
-                timers[(task["ds_name"], task["video_path"],
-                        task["rate_idx"])] = task_timers
+                timers[key] = task_timers
             if args.verbose >= 1:
                 print(f"rate {task['rate_idx']}: " + ", ".join(
                     f"{k} {v['mean_ms']:.1f} ms x{v['count']}"

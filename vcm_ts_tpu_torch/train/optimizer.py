@@ -37,6 +37,8 @@ takes the rank's slice of a whole moment.
 
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -254,9 +256,10 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
 
 
 def _is_dtensor(t) -> bool:
-    from torch.distributed.tensor import DTensor
-
-    return isinstance(t, DTensor)
+    # a DTensor exists only once its module is imported; importing it here
+    # would cost every plain run seconds
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
 
 
 def _like(mine: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:

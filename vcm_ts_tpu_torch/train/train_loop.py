@@ -35,7 +35,9 @@ runs.
 
 `do_train` returns a record of the run: per epoch its stage, frames
 trained, the seconds spent in the steps, waiting on the loader, in eval and
-in the checkpoint, and per iteration the mean loss, bpp and psnr per rate
+in the checkpoint, the kernel launches of its steps (ops/cuda_build
+.LAUNCHES counted over the epoch's iterations, eval excluded), and per
+iteration the mean loss, bpp and psnr per rate
 anchor. With more than one process the ranks meet at a barrier before an
 epoch's clock starts, and every rank records the slowest rank's step
 seconds, so each rank's record gives the same frames/s.
@@ -52,6 +54,7 @@ import numpy as np
 import torch
 
 from ..eval.validation import eval_dataset
+from ..ops import cuda_build
 from ..parallel import mesh as pm
 from ..parallel.tensor import shard_params_fsdp, shard_params_tp
 from . import train_step as ts
@@ -182,6 +185,7 @@ def do_train(cfg, model, data_loader, checkpointer, start_epoch: int = 0,
               "checkpoint_s": 0.0}
         if mesh is not None:
             pm.synchronize()  # one start for every rank's clock
+        launches = dict(cuda_build.LAUNCHES)
         t_epoch = t_wait = time.perf_counter()
         for it, (inputs, targets) in enumerate(data_loader):
             ep["loader_wait_s"] += time.perf_counter() - t_wait
@@ -215,6 +219,8 @@ def do_train(cfg, model, data_loader, checkpointer, start_epoch: int = 0,
             t_wait = time.perf_counter()
         _sync(device)
         ep["train_s"] = time.perf_counter() - t_epoch
+        ep["launches"] = {k: v - launches[k]
+                          for k, v in cuda_build.LAUNCHES.items()}
         if mesh is not None:
             # the slowest rank's seconds: one frames/s on every rank
             ep["train_s"] = pm.max_over_ranks(ep["train_s"], device)
